@@ -22,6 +22,23 @@ Phases (any failure exits non-zero):
                 ``--engine hybrid`` (host) output, the window count and
                 that jax never loaded; prints windows/s and the
                 per-phase seconds (pack, upload, join, scan, fetch).
+  5. engines  - on the same data, the port's other single-GPU engines,
+                each output's KCF bytes against ``--engine hybrid``'s:
+                ``--engine dprefix -f window -w 5000`` cold and warm (the
+                absent-run program, ``_score_runs``; peak device memory
+                of the warm run at the default slab); a ``-p 2500``
+                sliding dprefix run on one sample with
+                ``KCFTOOLS_DPREFIX_UPLINK=bitmap`` (the bitmap program,
+                ``_score_batch``); a dprefix run with
+                ``KCFTOOLS_SORT_CACHE_BUDGET=0`` on a copy of a database
+                without its sorted sidecar (the streamed ingest); and
+                ``-f gene`` / ``-f transcript`` with ``--engine device``
+                (the on-chip hash engine, ``table_lookup``) and
+                ``--engine dprefix`` over a synthetic GTF (~4,000 genes of
+                1-10 kb, 1-3 transcripts of 2-6 exons, both strands, a few
+                genes shorter than k). Call counters, zeroed before each
+                run, show that each program ran on the card; prints
+                windows/s per engine and the dprefix_* stage seconds.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -47,6 +64,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 K = 31
 WINDOW = 5000
 N_CHROMS = 4
+WINDOW_ARGS = ("-f", "window", "-w", str(WINDOW))
+GENES_PER_CHROM = 1000  # ~4,000 genes on 40 Mbp: rice's gene density
+SHORT_GENES_PER_CHROM = 2  # genes shorter than k
 MAIN_P, MAIN_TQ, MAIN_TT = 1 << 16, 1024, 1024
 KERNELS = {
     "pjoin_packed": ("launches_packed", "kcftools_tpu/ops/pjoin.py:179"),
@@ -231,25 +251,55 @@ def _strip_volatile(path):
         )
 
 
-def run_cli(ref, dbs, out_dir, engine, stage_json):
+@contextlib.contextmanager
+def _environ(**kv):
+    old = {key: os.environ.get(key) for key in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for key, v in old.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+
+
+def run_cli(ref, dbs, out_dir, engine, stage_json, args=WINDOW_ARGS,
+            env=None):
+    """getVariations through the port's CLI, in process; returns (wall
+    seconds, stage seconds, the KCF path of each sample)."""
     from kcftools_tpu_torch.cli import main
 
     samples = [os.path.basename(d) for d in dbs]
+    os.makedirs(out_dir, exist_ok=True)
+    outs = [os.path.join(out_dir, f"{s}.kcf") for s in samples]
     argv = ["getVariations", "-r", ref, "-k", ",".join(dbs),
-            "-s", ",".join(samples), "-o", out_dir, "-f", "window",
-            "-w", str(WINDOW), "--engine", engine,
+            "-s", ",".join(samples), "-o", out_dir if len(dbs) > 1 else outs[0],
+            *args, "--engine", engine,
             "-t", str(min(8, os.cpu_count() or 1))]
-    os.environ["KCFTOOLS_STAGE_JSON"] = stage_json
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(sys.stderr):  # the CLI logs to stdout
-        rc = main(argv)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with _environ(KCFTOOLS_STAGE_JSON=stage_json, **(env or {})):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # the CLI logs to stdout
+            rc = main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     if rc != 0:
-        fail(f"getVariations --engine {engine} exited {rc}")
+        fail(f"getVariations --engine {engine} {' '.join(args)} exited {rc}")
     with open(stage_json) as f:
         stages = json.load(f)
-    return dt, stages, [os.path.join(out_dir, f"{s}.kcf") for s in samples]
+    return dt, stages, outs
+
+
+def check_same(got_paths, want_paths, n_rows, what):
+    """KCF bytes equal apart from ##date / ##CMD, with n_rows windows."""
+    for got, want in zip(got_paths, want_paths, strict=True):
+        g, w = _strip_volatile(got), _strip_volatile(want)
+        if g != w:
+            fail(f"{what}: {got} differs from {want}")
+        rows = [ln for ln in g.split(b"\n") if ln and not ln.startswith(b"#")]
+        if len(rows) != n_rows:
+            fail(f"{what}: {got} has {len(rows)} windows, expected {n_rows}")
 
 
 def run_slice(root, ref, dbs, chrom_len):
@@ -270,13 +320,7 @@ def run_slice(root, ref, dbs, chrom_len):
     for name, n in launches.items():
         if n == 0:
             fail(f"{name} was not launched by the main path")
-    for d, h in zip(dev_kcf, host_kcf):
-        got, want = _strip_volatile(d), _strip_volatile(h)
-        if got != want:
-            fail(f"{d}: KCF differs from the host engine's")
-        rows = [ln for ln in got.split(b"\n") if ln and not ln.startswith(b"#")]
-        if len(rows) != n_win:
-            fail(f"{d}: {len(rows)} windows, expected {n_win}")
+    check_same(dev_kcf, host_kcf, n_win, "device engine")
     if "jax" in sys.modules:
         fail("jax was imported")
     total_win = n_win * len(dbs)
@@ -289,7 +333,177 @@ def run_slice(root, ref, dbs, chrom_len):
         f"({total_win / warm_s} windows/s); host engine {host_s} s")
     log(f"slice: warm phase seconds {json.dumps(phases)}; all stages "
         f"cold {json.dumps(cold_st)} warm {json.dumps(warm_st)}")
-    return launches
+    return launches, host_kcf
+
+
+# -- phase 5: the dprefix and on-chip hash engines ----------------------
+
+def write_gtf(path, chrom_len, seed):
+    """A synthetic annotation: GENES_PER_CHROM genes of 1-10 kb per
+    chromosome on random strands, each with 1-3 transcripts of 2-6 exons
+    inside the gene, plus SHORT_GENES_PER_CHROM single-exon genes shorter
+    than k. Returns (genes, transcripts)."""
+    rng = np.random.default_rng(seed + 1)
+    rows = []
+    n_genes = n_tr = 0
+
+    def add(chrom, type_, start, end, strand, attrs):
+        rows.append(f"{chrom}\tsmoke\t{type_}\t{start}\t{end}\t.\t{strand}"
+                    f"\t.\t{attrs}\n")
+
+    for chrom, L in chrom_len.items():
+        genes = [(int(gs), int(rng.integers(1000, 10_001)))
+                 for gs in np.sort(rng.integers(1, L - 10_000,
+                                                GENES_PER_CHROM))]
+        genes += [(int(gs), K - 5) for gs in
+                  rng.integers(1, L - 100, SHORT_GENES_PER_CHROM)]
+        for gs, glen in genes:
+            ge = gs + glen - 1
+            strand = "+-"[int(rng.integers(0, 2))]
+            gid = f"g{n_genes}"
+            n_genes += 1
+            add(chrom, "gene", gs, ge, strand, f'gene_id "{gid}";')
+            n_t = int(rng.integers(1, 4)) if glen >= 1000 else 1
+            for t in range(n_t):
+                if glen >= 1000:
+                    n_ex = int(rng.integers(2, 7))
+                    cuts = np.sort(rng.choice(glen, 2 * n_ex, replace=False))
+                    exons = (cuts.reshape(-1, 2) + gs).tolist()
+                else:
+                    exons = [[gs, ge]]
+                attrs = f'gene_id "{gid}"; transcript_id "{gid}.t{t}";'
+                add(chrom, "mRNA", exons[0][0], exons[-1][1], strand, attrs)
+                for a, b in exons:
+                    add(chrom, "exon", a, b, strand, attrs)
+                n_tr += 1
+    with open(path, "w") as fh:
+        fh.writelines(rows)
+    return n_genes, n_tr
+
+
+def _calls():
+    from kcftools_tpu_torch.engine import device_prefix as tdp
+    from kcftools_tpu_torch.ops.lookup import table_lookup
+
+    return (tdp._score_runs, tdp._score_batch, table_lookup)
+
+
+def _zero_calls():
+    for fn in _calls():
+        fn.cuda_calls = 0
+
+
+def _read_calls():
+    return dict(zip(("score_runs", "score_batch", "table_lookup"),
+                    (fn.cuda_calls for fn in _calls())))
+
+
+def _need(calls, name, what):
+    if calls[name] == 0:
+        fail(f"{what}: {name} did not run on the card ({calls})")
+
+
+def run_engines(root, ref, dbs, chrom_len, host_kcf, seed):
+    """Phase 5 (see the module docstring). Returns the per-program call
+    counts of each run."""
+    from kcftools_tpu_torch._host import sliding_windows, tiling_windows
+
+    n_win = sum(len(tiling_windows(L, WINDOW, K)[0])
+                for L in chrom_len.values())
+    stage_json = os.path.join(root, "stages5.json")
+    out = {}
+
+    def drive(name, dbs_, engine, args=WINDOW_ARGS, env=None):
+        _zero_calls()
+        res = run_cli(ref, dbs_, os.path.join(root, name), engine,
+                      stage_json, args=args, env=env)
+        out[name] = _read_calls()
+        return res
+
+    # window tiling, all samples: the run program
+    cold_s, cold_st, cold_kcf = drive("dprefix_cold", dbs, "dprefix")
+    _need(out["dprefix_cold"], "score_runs", "dprefix window")
+    check_same(cold_kcf, host_kcf, n_win, "dprefix window, first run")
+    torch.cuda.reset_peak_memory_stats()
+    warm_s, warm_st, dp_kcf = drive("dprefix", dbs, "dprefix")
+    peak = torch.cuda.max_memory_allocated()
+    _need(out["dprefix"], "score_runs", "dprefix window")
+    check_same(dp_kcf, host_kcf, n_win, "dprefix window")
+    total = n_win * len(dbs)
+    log(f"engines: dprefix window KCF bytes equal the host engine's; "
+        f"cold {cold_s} s, warm {warm_s} s ({total / warm_s} windows/s); "
+        f"calls {out['dprefix']}")
+    log(f"engines: dprefix warm stage seconds {json.dumps(warm_st)}; "
+        f"cold {json.dumps(cold_st)}")
+    log(f"engines: dprefix peak device memory (warm run, slab "
+        f"{os.environ.get('KCFTOOLS_DPREFIX_SLAB', 1 << 26)} positions) "
+        f"{peak} bytes ({peak / 2**30} GiB)")
+
+    # sliding windows on one sample: the bitmap program
+    slide = ("-f", "window", "-w", str(WINDOW), "-p", "2500")
+    hs_s, _, hs_kcf = drive("host_slide", dbs[:1], "hybrid", args=slide)
+    sl_s, sl_st, sl_kcf = drive("dprefix_slide", dbs[:1], "dprefix",
+                                args=slide,
+                                env={"KCFTOOLS_DPREFIX_UPLINK": "bitmap"})
+    _need(out["dprefix_slide"], "score_batch", "dprefix sliding")
+    n_slide = sum(len(sliding_windows(L, WINDOW, 2500, K)[0])
+                  for L in chrom_len.values())
+    check_same(sl_kcf, hs_kcf, n_slide, "dprefix sliding")
+    log(f"engines: dprefix sliding (bitmap program) {sl_s} s "
+        f"({n_slide / sl_s} windows/s), host engine {hs_s} s; KCF bytes "
+        f"equal; stages {json.dumps(sl_st)}; calls {out['dprefix_slide']}")
+
+    # the streamed low-memory ingest: a copy of sample 1 without sidecar
+    sdir = os.path.join(root, "streamed_db")
+    os.makedirs(sdir)
+    name1 = os.path.basename(dbs[0])
+    for ext in (".kmc_pre", ".kmc_suf"):
+        shutil.copyfile(dbs[0] + ext, os.path.join(sdir, name1 + ext))
+    st_s, st_st, st_kcf = drive(
+        "dprefix_streamed", [os.path.join(sdir, name1)], "dprefix",
+        env={"KCFTOOLS_SORT_CACHE_BUDGET": "0"},
+    )
+    if "merge_streamed" not in st_st:
+        fail(f"streamed ingest did not run (stages {st_st})")
+    if sorted(os.listdir(sdir)) != sorted(name1 + e
+                                          for e in (".kmc_pre", ".kmc_suf")):
+        fail(f"the streamed run wrote beside its database: {os.listdir(sdir)}")
+    _need(out["dprefix_streamed"], "score_runs", "dprefix streamed")
+    check_same(st_kcf, host_kcf[:1], n_win, "dprefix streamed")
+    log(f"engines: dprefix streamed ingest {st_s} s; KCF bytes equal; "
+        f"stages {json.dumps(st_st)}")
+
+    # gene / transcript features
+    gtf = os.path.join(root, "smoke.gtf")
+    n_feat = dict(zip(("gene", "transcript"), write_gtf(gtf, chrom_len, seed)))
+    for feature in ("gene", "transcript"):
+        args = ("-f", feature, "-g", gtf)
+        times = {}
+        h_s, _, h_kcf = drive(f"host_{feature}", dbs, "hybrid", args=args)
+        times["hybrid"] = h_s
+        for engine, program in (("device", "table_lookup"),
+                                ("dprefix", None)):
+            e_s, e_st, e_kcf = drive(f"{engine}_{feature}", dbs, engine,
+                                     args=args)
+            calls = out[f"{engine}_{feature}"]
+            if program:
+                _need(calls, program, f"{engine} {feature}")
+            elif calls["score_runs"] + calls["score_batch"] == 0:
+                fail(f"dprefix {feature}: no scan ran on the card ({calls})")
+            check_same(e_kcf, h_kcf, n_feat[feature], f"{engine} {feature}")
+            times[engine] = e_s
+            log(f"engines: -f {feature} --engine {engine}: KCF bytes equal "
+                f"the host engine's; stages {json.dumps(e_st)}; "
+                f"calls {calls}")
+        nw = n_feat[feature] * len(dbs)
+        log(f"engines: -f {feature}, {n_feat[feature]} features x "
+            f"{len(dbs)} samples: " + ", ".join(
+                f"{e} {t} s ({nw / t} windows/s)" for e, t in times.items()))
+    if "jax" in sys.modules:
+        fail("jax was imported")
+    log(f"engines: all phase-5 runs equal the host engine; jax not loaded; "
+        f"calls per run {json.dumps(out)}")
+    return out
 
 
 def main():
@@ -335,7 +549,8 @@ def main():
         ref, dbs, chrom_len = make_data(root, args.mbp, args.samples, args.seed)
         log(f"data: {args.mbp} Mbp reference, {len(dbs)} samples in "
             f"{time.perf_counter() - t0} s")
-        launches = run_slice(root, ref, dbs, chrom_len)
+        launches, host_kcf = run_slice(root, ref, dbs, chrom_len)
+        run_engines(root, ref, dbs, chrom_len, host_kcf, args.seed)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

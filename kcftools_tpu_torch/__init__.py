@@ -1,9 +1,13 @@
 """kcftools_tpu_torch: the PyTorch + CUDA port of kcftools_tpu.
 
 The JAX package ``kcftools_tpu`` stays the reference. This package runs
-the same getVariations main path (``-f window --engine device``, k <= 32)
-on one NVIDIA GPU: plain torch ops for the scans, and a hand-written
-CUDA kernel for the partitioned join (``csrc/pjoin.cu``). It imports
+every getVariations engine that the JAX package runs on one chip, on one
+NVIDIA GPU: the device-join engine (``-f window --engine device``,
+k <= 32; a hand-written CUDA kernel for the partitioned join,
+``csrc/pjoin.cu``), the dprefix engine (``--engine dprefix``, every mode
+and k, and the streamed low-memory ingest) and the on-chip hash engine
+(``-f gene|transcript --engine device``, k <= 32), with plain torch ops
+for the scans, the k-mer extraction and the hash lookups. It imports
 torch and never jax; the shared host tier (I/O, the native C++ library,
 the numpy engine modules, the host plugins) comes from ``kcftools_tpu``
 through ``_host``.
@@ -12,9 +16,13 @@ Layout (mirrors kcftools_tpu):
   torchinit.py          device selection (cuda:0 unless told otherwise)
   ops/pjoin.py          partitioned join: host tiling + kernel wrapper
   ops/_kernels.py       nvcc build and ctypes binding of csrc/*.cu
-  engine/device_prefix  the gap-run prefix scan and slab layout
+  ops/kmerize.py        canonical (hi, lo) k-mers of padded windows
+  ops/lookup.py         bucketed hash-table lookup
+  engine/device_prefix  the gap-run prefix scan, slab layout and
+                        DevicePrefixScorer (dprefix)
   engine/device_join    DeviceJoinScorer
-  plugins/              getVariations with the port's device engine
+  engine/pipeline       WindowScorer (the on-chip hash engine)
+  plugins/              getVariations with the port's device engines
   cli.py                ``python -m kcftools_tpu_torch.cli``
 """
 

@@ -64,20 +64,41 @@ from kcftools_tpu.engine.encode import (  # noqa: E402
     pack_kmers,
     split_hi_lo,
 )
-from kcftools_tpu.engine.hashtable import bucket_hashes_np  # noqa: E402
+from kcftools_tpu.engine.hashtable import (  # noqa: E402
+    KmerTable,
+    bucket_hashes_np,
+    build_table,
+)
 from kcftools_tpu.engine.refindex import (  # noqa: E402
     FeatureKmerIndex,
     RefKmerIndex,
 )
 from kcftools_tpu.io.fasta import FastaIndex  # noqa: E402
 from kcftools_tpu.io.gtf import GTF  # noqa: E402
-from kcftools_tpu.engine.windows import tiling_windows  # noqa: E402
+from kcftools_tpu.engine.windows import (  # noqa: E402
+    PAD_MARGIN,
+    bucket_pad_len,
+    pad_batch_varlen,
+    sliding_windows,
+    tiling_windows,
+)
+from kcftools_tpu.io.kcf import KCFHeader, KCFWriter  # noqa: E402
 from kcftools_tpu.io.kmc import (  # noqa: E402
     KMCReader,
     load_sorted_cache,
     write_kmc_db,
 )
-from kcftools_tpu.native import get_lib, set_threads, sort_pairs  # noqa: E402
+from kcftools_tpu.native import (  # noqa: E402
+    _uniform_window_map,
+    bits_to_runs,
+    build_ordmap,
+    get_lib,
+    merge_counts_u8,
+    ordpack,
+    pack_posbits,
+    set_threads,
+    sort_pairs,
+)
 from kcftools_tpu.plugins import PLUGINS as HOST_PLUGINS  # noqa: E402
 from kcftools_tpu.plugins import _common, get_variations  # noqa: E402
 from kcftools_tpu.utils import stagetimer  # noqa: E402
@@ -88,20 +109,34 @@ __all__ = [
     "FeatureKmerIndex",
     "GTF",
     "HOST_PLUGINS",
+    "KCFHeader",
+    "KCFWriter",
     "KCF_SOURCE",
     "KMCReader",
     "KcfError",
+    "KmerTable",
     "Logger",
+    "PAD_MARGIN",
     "RefKmerIndex",
     "__version__",
     "_common",
+    "_uniform_window_map",
+    "bits_to_runs",
     "bucket_hashes_np",
+    "bucket_pad_len",
+    "build_ordmap",
+    "build_table",
     "canonicalize",
     "get_lib",
     "get_variations",
     "load_sorted_cache",
+    "merge_counts_u8",
+    "ordpack",
     "pack_kmers",
+    "pack_posbits",
+    "pad_batch_varlen",
     "set_threads",
+    "sliding_windows",
     "sort_pairs",
     "split_hi_lo",
     "stagetimer",

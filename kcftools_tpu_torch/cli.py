@@ -2,8 +2,9 @@
 
 The same subcommands, flags and output bytes as ``kcftools_tpu.cli``:
 the JAX package's host plugins, with the port's getVariations (whose
-``--engine device`` runs on the GPU). ``KCFTOOLS_PROFILE=<dir>`` records
-a torch.profiler trace of the command into ``<dir>/trace.json``.
+``--engine device`` and ``--engine dprefix`` run on the GPU).
+``KCFTOOLS_PROFILE=<dir>`` records a torch.profiler trace of the command
+into ``<dir>/trace.json``.
 Multi-process runs (``KCFTOOLS_NUM_PROCS`` > 1) are not yet ported and
 exit with an error.
 """

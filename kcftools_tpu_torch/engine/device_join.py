@@ -39,7 +39,7 @@ import os
 import numpy as np
 import torch
 
-from .._host import Logger, get_lib, split_hi_lo, stagetimer
+from .._host import Logger, get_lib, split_hi_lo
 from ..ops.pjoin import (
     _round_up,
     as_i32,
@@ -48,27 +48,17 @@ from ..ops.pjoin import (
     raw_quantile_ids,
     tile_sorted,
 )
-from .device_prefix import _FIELDS, _Layout, _scan_core
+from .device_prefix import (
+    _FIELDS,
+    _Layout,
+    _phase,
+    _scan_core,
+    _unpack_bits,
+)
 
 _CLASS = "DeviceJoin"
 
 _JFIELDS = _FIELDS + ("count_sum",)
-
-
-class _phase(stagetimer.stage):
-    """A stagetimer stage that first waits for the device's queued work,
-    so that device time lands in the phase that queued it."""
-
-    __slots__ = ("device",)
-
-    def __init__(self, name, device):
-        super().__init__(name)
-        self.device = device
-
-    def __exit__(self, *exc):
-        if self.on and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return super().__exit__(*exc)
 
 
 def _slab_scan(routed_flat, slot_map, valid_bits, w_start, w_hi, *,
@@ -76,9 +66,7 @@ def _slab_scan(routed_flat, slot_map, valid_bits, w_start, w_hi, *,
     """One slab's per-window stats from the routed join counts.
     Returns (6, win_pad) int64: observed, variations, inner, left,
     right, count_sum."""
-    n = slot_map.shape[0]
-    shifts = torch.arange(8, dtype=torch.int32, device=valid_bits.device)
-    valid = ((valid_bits.int()[:, None] >> shifts) & 1).reshape(n) != 0
+    valid = _unpack_bits(valid_bits)
     zero = torch.zeros(1, dtype=torch.int64, device=valid.device)
     cs_tot = torch.cat([zero, torch.cumsum(valid, 0, dtype=torch.int64)])
     # the counts are uint32 bit patterns: compare them unsigned
@@ -274,7 +262,7 @@ class DeviceJoinScorer:
     def submit_counts(self, key, counts_u8, exc_idx, exc_val):
         raise NotImplementedError(
             "device-join needs the sorted sample table; streamed-slab "
-            "runs need the dprefix engine, which is not yet ported"
+            "runs take the dprefix engine"
         )
 
     def collect(self, key=None):

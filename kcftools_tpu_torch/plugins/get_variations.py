@@ -3,40 +3,53 @@ databases and write KCF.
 
 Port of kcftools_tpu/plugins/get_variations.py::run. The parser, the
 validation, the window plan, the KMC ingest helpers and the per-sample
-assembly and KCF writer (``_run_one_sample``) are the JAX package's
-host code, reused as they are. What the port owns is the engine
-routing and the device engine:
+assembly and KCF writer of the positional engines (``_run_one_sample``)
+are the JAX package's host code, reused as they are. What the port owns
+is the engine routing and the device engines, on one GPU:
 
-- ``--engine device`` at k <= 32 on one GPU runs the port's
-  DeviceJoinScorer (the join on the card);
+- ``--engine device``, window mode, k <= 32: the DeviceJoinScorer (the
+  join on the card);
+- ``--engine device``, gene/transcript features, k <= 32: the on-chip
+  hash engine (a per-sample hash table on the card, WindowScorer), with
+  its own header/assembly/write step (``_run_hash_sample``);
+- ``--engine dprefix``, every mode and any k: the DevicePrefixScorer (the
+  gap-run scans on the card), also behind the streamed low-memory
+  ingest;
 - ``--engine hybrid``, and ``auto`` on at most one GPU, run the host
   engine (the native merge join and window scan), as the JAX package
-  does;
-- ``--engine dprefix``, gene/transcript features with ``--engine
-  device``, and any engine choice that would spread over more than one
-  GPU are not yet ported (ROADMAP) and raise; they never run on another
-  engine instead.
+  does.
+
+An engine choice that would spread over more than one GPU is not yet
+ported (ROADMAP) and raises; it never runs on another engine instead.
 """
 
 import os
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from .._host import (
     GTF,
     FastaIndex,
     FeatureKmerIndex,
+    KCFHeader,
+    KCFWriter,
     KMCReader,
     Logger,
     RefKmerIndex,
     _common,
+    bucket_pad_len,
+    build_table,
     get_variations as _host,
     load_sorted_cache,
+    pad_batch_varlen,
     set_threads,
     stagetimer,
 )
 from ..engine.device_join import DeviceJoinScorer
+from ..engine.device_prefix import DevicePrefixScorer
+from ..engine.pipeline import WindowScorer
 from ..torchinit import device_count, resolve_device
 
 _CLASS = "GetVariants"
@@ -69,10 +82,6 @@ def _resolve_engine(args):
                 "across GPUs)"
             )
         return "hybrid"
-    if engine == "dprefix":
-        _not_ported("--engine dprefix")
-    if engine == "device" and args.feature != "window":
-        _not_ported(f"-f {args.feature} with --engine device")
     return engine
 
 
@@ -84,11 +93,11 @@ def run(args):
     stagetimer.reset()
     args.engine = _resolve_engine(args)
     device = None
-    if args.engine == "device":
+    if args.engine in ("device", "dprefix"):
         device = resolve_device()
         n_dev = device_count(device)
         if n_dev > 1:
-            _not_ported(f"--engine device over {n_dev} GPUs")
+            _not_ported(f"--engine {args.engine} over {n_dev} GPUs")
     set_threads(args.threads)
     kmc_list = args.kmc.split(",")
     samples = [
@@ -115,24 +124,36 @@ def run(args):
     gtf = GTF(args.gtf) if args.feature in ("gene", "transcript") else None
 
     def _ingest(db_prefix):
-        """KMC decode + key sort (or the sorted sidecar), on a worker
-        thread for sample i+1 while sample i is scored."""
+        """KMC decode + key sort (or the sorted sidecar), or for the
+        on-chip hash engine the sample's hash table, on a worker thread
+        for sample i+1 while sample i is scored. Returns (kmc,
+        positional, db_sorted, table): ``positional`` is whether the
+        sample takes a merge-join engine (host, dprefix, device-join);
+        ``db_sorted`` None there means the streamed merge."""
         kmc = KMCReader(db_prefix, materialize=False)
         k = kmc.kmer_length
-        db_sorted = None
+        positional = args.engine in ("hybrid", "dprefix") or (
+            args.feature == "window" and k <= 32
+        )
+        db_sorted = table = None
         with stagetimer.stage("ingest"):
-            if k <= 64:
-                db_sorted = load_sorted_cache(db_prefix, k)
-            # the device-join engine needs the full sorted table; the
-            # budget gate only applies to the host engine's streamed
-            # alternative
-            if db_sorted is None and (
-                args.memory or _host._db_fits_ram(kmc, k)
-                or (args.engine == "device" and k <= 32)
-            ):
-                kmc._read_records()
-                db_sorted = _host._sort_db(kmc, k, db_prefix=db_prefix)
-        return kmc, db_sorted
+            if positional:
+                if k <= 64:
+                    db_sorted = load_sorted_cache(db_prefix, k)
+                # the device-join engine needs the full sorted table; the
+                # budget gate only applies to the streamed alternative
+                if db_sorted is None and (
+                    args.memory or _host._db_fits_ram(kmc, k)
+                    or args.engine == "device"
+                ):
+                    kmc._read_records()
+                    db_sorted = _host._sort_db(kmc, k, db_prefix=db_prefix)
+            elif k <= 32:
+                if kmc.kmers is None:
+                    kmc._read_records()
+                table = build_table(kmc.kmers, kmc.counts, k,
+                                    both_strands=kmc.both_strands)
+        return kmc, positional, db_sorted, table
 
     pool = (
         ThreadPoolExecutor(max_workers=1) if len(kmc_list) > 1 else None
@@ -142,6 +163,7 @@ def run(args):
     refidx = None
     plan = None
     dscorer = None
+    hash_scorer = None  # on-chip hash engine, reused across samples
     group = []  # device-engine samples submitted but not yet written
 
     def _flush_group():
@@ -157,18 +179,29 @@ def run(args):
         zip(kmc_list, samples, outputs)
     ):
         if pool is not None:
-            kmc, db_sorted = pending.result()
+            kmc, positional, db_sorted, table = pending.result()
             if i + 1 < len(kmc_list):
                 pending = pool.submit(_ingest, kmc_list[i + 1])
         else:
-            kmc, db_sorted = _ingest(db_prefix)
+            kmc, positional, db_sorted, table = _ingest(db_prefix)
         k = kmc.kmer_length
-        if args.engine == "device" and k > 32:
-            Logger.error(
-                _CLASS,
-                f"k={k} > 32: the device-join engine supports k <= 32 "
-                "(use hybrid)",
-            )
+        if not positional:
+            if k > 32:
+                Logger.error(
+                    _CLASS,
+                    f"k={k} > 32 requires the hybrid or dprefix engine; "
+                    "--engine device supports k <= 32",
+                )
+            if hash_scorer is None or hash_scorer.k != k or (
+                hash_scorer.both_strands != kmc.both_strands
+            ):
+                hash_scorer = WindowScorer(table, device,
+                                           min_count=args.min_k_count)
+            else:
+                hash_scorer.set_table(table)
+            _run_hash_sample(args, index, gtf, k, hash_scorer, sample,
+                             out_path)
+            continue
         if refidx is None or refidx.k != k or (
             refidx.canonical != kmc.both_strands
         ):
@@ -186,24 +219,13 @@ def run(args):
                 )
                 plan = None
             dscorer = None
-        if args.engine == "device" and dscorer is None:
-            batch = (
-                min(len(kmc_list), 16)
-                if not os.environ.get("KCFTOOLS_DEVICE_BATCH")
-                else None
+        if args.engine in ("device", "dprefix") and dscorer is None:
+            dscorer = _make_positional_scorer(
+                args, refidx, plan, k, device, len(kmc_list)
             )
-            dscorer = DeviceJoinScorer(
-                refidx, k, device, min_count=args.min_k_count, batch=batch
-            )
-            for name, pl in plan.items():
-                if pl is not None:
-                    dscorer.add_chrom(
-                        name, refidx.chrom_r_idx[name], pl["starts"],
-                        pl["ends"],
-                    )
         if dscorer is not None:
             # submit now; assemble + write once the group fills
-            _host._submit_sample(args, refidx, kmc, k, db_sorted, dscorer, i)
+            _submit_sample(refidx, kmc, k, db_sorted, dscorer, i)
             group.append((i, kmc, k, sample, out_path))
             if len(group) >= dscorer.batch:
                 _flush_group()
@@ -219,3 +241,153 @@ def run(args):
     if dscorer is not None:
         dscorer.close()
     stagetimer.dump()
+
+
+def _make_positional_scorer(args, refidx, plan, k, device, n_samples):
+    """The device-join (``--engine device``, window mode) or dprefix
+    scorer for one reference index, with its windows registered. A
+    group holds the run's sample count (capped at 16) unless
+    KCFTOOLS_DEVICE_BATCH sets it."""
+    batch = (
+        min(n_samples, 16)
+        if not os.environ.get("KCFTOOLS_DEVICE_BATCH")
+        else None
+    )
+    if args.engine == "device":
+        scorer = DeviceJoinScorer(
+            refidx, k, device, min_count=args.min_k_count, batch=batch
+        )
+    else:
+        scorer = DevicePrefixScorer(
+            refidx, k, device, min_count=args.min_k_count, batch=batch
+        )
+    if args.feature == "window":
+        for name, pl in plan.items():
+            if pl is not None:
+                scorer.add_chrom(
+                    name, refidx.chrom_r_idx[name], pl["starts"], pl["ends"]
+                )
+    else:
+        for name, pl in refidx.chrom_plans.items():
+            if pl is not None:
+                scorer.add_chrom_kcoords(
+                    name, pl["r_idx"], pl["w_start"], pl["w_hi"]
+                )
+    return scorer
+
+
+def _submit_sample(refidx, kmc, k, db_sorted, dscorer, key):
+    """Merge one sample and enqueue it under ``key``: the sorted table's
+    merge, or the streamed low-memory merge (stage ``merge_streamed``)
+    when the ingest left ``db_sorted`` None."""
+    ref_keys = (
+        (refidx.kmers_hi, refidx.kmers_lo) if 32 < k <= 64 else refidx.kmers
+    )
+    if db_sorted is None:
+        with stagetimer.stage("merge_streamed"):
+            u8, ei, ev = _host._merge_streamed(kmc, ref_keys, k)
+        dscorer.submit_counts(key, u8, ei, ev)
+    else:
+        db_keys, dbc = db_sorted
+        dscorer.submit(key, ref_keys, db_keys, dbc)
+
+
+def _run_hash_sample(args, index, gtf, k, scorer, sample, out_path):
+    """One sample through the on-chip hash engine (gene/transcript
+    features): score every chromosome's features, then write the KCF as
+    the JAX package's ``_run_one_sample`` does."""
+    header = KCFHeader()
+    header.reference = args.reference
+    header.add_command_line(_common.get_command_line())
+    header.add_sample(sample)
+    header.window_size = args.window
+    header.step_size = args.step
+    header.kmer_size = k
+    header.is_ibs = False
+    header.set_weights(args.wi, args.wt, args.wr)
+    weights = (args.wi, args.wt, args.wr)
+
+    Logger.info(_CLASS, "Generating windows...")
+    blocks = []
+    with stagetimer.stage("scan"):
+        for name in index.get_sequence_names():
+            header.add_contig(name, index.get_sequence_length(name))
+            block = _score_feature_windows(args, index, gtf, name, k,
+                                           scorer, sample)
+            if block is not None and len(block) > 0:
+                # reference sorts each chromosome's windows by start
+                order = np.argsort(block.start, kind="stable")
+                blocks.append(block.select(order))
+    total_windows = sum(len(b) for b in blocks)
+    Logger.info(_CLASS, f"Number of windows: {total_windows}")
+    header.window_count = total_windows
+    with stagetimer.stage("write"), KCFWriter(out_path) as writer:
+        writer.write_header(header)
+        for block in blocks:
+            block.finalize(weights)
+            writer.write_block(block)
+    Logger.info(_CLASS, f"Wrote {total_windows} windows to {out_path}")
+
+
+def _score_feature_windows(args, index, gtf, name, k, scorer, sample):
+    """One chromosome's gene/transcript features through the hash
+    engine: splice each feature, bucket by padded length, score the
+    buckets in batches of about 2^22 positions."""
+    is_gene = args.feature == "gene"
+    feats = []  # (window_id, chrom, start, end)
+    genes = gtf.get_genes(name)
+    if not genes and not is_gene:
+        Logger.warning(
+            _CLASS, f"No genes found in GTF file for sequence: {name}"
+        )
+    for gene in genes:
+        if is_gene:
+            chrom, start, end, _ = gtf.get_loci(gene)
+            feats.append((gene, chrom, start, end))
+        else:
+            transcripts = gtf.get_transcripts(gene)
+            if not transcripts:
+                Logger.error(
+                    _CLASS,
+                    f"No transcripts found for gene: {gene} in GTF file for "
+                    f"sequence: {name}",
+                )
+            for tr in transcripts:
+                chrom, start, end, _ = gtf.get_loci(tr)
+                feats.append((tr, chrom, start, end))
+    if not feats:
+        return None
+
+    spliced = []
+    for wid, _chrom, _start, _end in feats:
+        cv = gtf.spliced_codes(wid, index, is_gene)
+        if cv is None:
+            Logger.error(_CLASS, f"Fasta object is null for window: {wid}")
+        spliced.append(cv)
+
+    buckets = {}
+    for i, (c, _v) in enumerate(spliced):
+        buckets.setdefault(bucket_pad_len(len(c), k), []).append(i)
+
+    handles = []
+    for pad_len, idxs in buckets.items():
+        bsz = max(1, _host._BATCH_POSITIONS // pad_len)
+        for off in range(0, len(idxs), bsz):
+            part = idxs[off : off + bsz]
+            bcodes, bvalid, win_len = pad_batch_varlen(
+                [spliced[i][0] for i in part],
+                [spliced[i][1] for i in part],
+                pad_len,
+            )
+            handles.append(
+                (scorer.score_batch_async(bcodes, bvalid, win_len), part)
+            )
+
+    res = {}
+    for handle, part in handles:
+        for key, v in scorer.collect(handle).items():
+            res.setdefault(key, np.zeros(len(feats), np.int64))[part] = v
+    return _host._make_block(
+        sample, [f[1] for f in feats], [f[2] for f in feats],
+        [f[3] for f in feats], [f[0] for f in feats], res, k,
+    )

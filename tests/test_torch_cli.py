@@ -126,19 +126,19 @@ def test_port_cli_refuses_unported_engines(tmp_path, rng, args, what):
     fa, dbs, samples, extra = _fixture(tmp_path, rng, "tiling")
     argv = _gv(fa, dbs, samples, str(tmp_path / "o.kcf"), extra, "hybrid")
     argv[-2:] = args
-    # auto on more than one GPU is the multi-GPU path: the subprocess
-    # makes torch report two
+    # auto and dprefix on more than one GPU are the multi-GPU path: the
+    # subprocess makes torch report two (and, for dprefix, that CUDA is
+    # there, so that cuda:0 resolves)
     env = {"KCFTOOLS_NO_DEVICE_PROBE": ""}
-    if args[1] == "auto":
-        proc = subprocess.run(
-            [sys.executable, "-c",
-             "import sys, torch\n"
-             "torch.cuda.device_count = lambda: 2\n" + _RUN, *argv],
-            cwd=_REPO, env=_env(**env), capture_output=True, text=True,
-            timeout=300,
-        )
-    else:
-        proc = _port(argv, **env)
+    fake = "import sys, torch\ntorch.cuda.device_count = lambda: 2\n"
+    if args[1] == "dprefix":
+        fake += "torch.cuda.is_available = lambda: True\n"
+        env["KCFTOOLS_TORCH_DEVICE"] = "cuda:0"
+    proc = subprocess.run(
+        [sys.executable, "-c", fake + _RUN, *argv],
+        cwd=_REPO, env=_env(**env), capture_output=True, text=True,
+        timeout=300,
+    )
     assert proc.returncode == 1
     assert what in proc.stderr and "not yet ported" in proc.stderr
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and device engine on the card.
+"""The port's CUDA kernel and device engines on the card.
 
 Every test here needs an NVIDIA GPU and skips without one. This file
 imports no jax, so that it runs where jax is not installed:
@@ -14,8 +14,17 @@ import numpy as np
 import pytest
 import torch
 
-from kcftools_tpu_torch._host import canonicalize, pack_kmers, tiling_windows
+from kcftools_tpu_torch._host import (
+    build_table,
+    canonicalize,
+    pack_kmers,
+    pad_batch_varlen,
+    tiling_windows,
+)
+from kcftools_tpu_torch.engine import device_prefix as tdp
+from kcftools_tpu_torch.engine import pipeline as tpl
 from kcftools_tpu_torch.engine.device_join import DeviceJoinScorer
+from kcftools_tpu_torch.ops import lookup as tlk
 from kcftools_tpu_torch.ops import pjoin as tpj
 
 _TOP32 = np.uint64(0xFFFFFFFF00000000)  # k=32 T^16A^16
@@ -109,3 +118,88 @@ def test_device_join_scorer_gpu_matches_cpu(cuda_device, counts_hi):
     for f, want in out["cpu"].items():
         np.testing.assert_array_equal(out["cuda"][f], want, err_msg=f)
     assert out["cuda"]["observed"].sum() > 0
+
+
+def _genome_case(rng, L, k, snp=0.01):
+    """A genome's reference index and one sample's sorted table."""
+    genome = rng.integers(0, 4, L).astype(np.uint8)
+    valid = rng.random(L) > 0.002
+    km, kv = pack_kmers(genome, valid, k)
+    canon = canonicalize(km, k)
+    refk = np.unique(canon[kv])
+    r_idx = np.full(canon.shape[0], -1, np.int32)
+    r_idx[kv] = np.searchsorted(refk, canon[kv]).astype(np.int32)
+    s = genome.copy()
+    m = rng.random(L) < snp
+    s[m] = (s[m] + 1) % 4
+    km2, kv2 = pack_kmers(s, valid, k)
+    db, dbc = np.unique(canonicalize(km2[kv2], k), return_counts=True)
+    return genome, valid, refk, r_idx, db, dbc.astype(np.uint32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("uplink,kind", [("runs", "runs"),
+                                         ("bitmap", "bits")])
+def test_device_prefix_scorer_gpu_matches_cpu(cuda_device, monkeypatch,
+                                              uplink, kind):
+    """Three samples in one group (counts > 255 in one of them), two
+    slabs, min_count 2: the scorer on the card equals it on the CPU."""
+    monkeypatch.setenv("KCFTOOLS_DPREFIX_UPLINK", uplink)
+    monkeypatch.setenv("KCFTOOLS_DPREFIX_SLAB", str(1 << 17))
+    rng = np.random.default_rng(9)
+    k = 31
+    _g, _v, refk, r_idx, db, dbc = _genome_case(rng, 200_000, k)
+    starts, ends = tiling_windows(r_idx.shape[0] + k - 1, 5000, k)
+    keep = rng.random(db.shape[0]) > 0.005
+    tables = [(db, dbc * np.uint32(3)), (db, dbc * np.uint32(500)),
+              (db[keep], dbc[keep])]
+    fn = tdp._score_runs if kind == "runs" else tdp._score_batch
+    before = fn.cuda_calls
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        sc = tdp.DevicePrefixScorer(None, k, dev, min_count=2, batch=3)
+        sc.add_chrom("c", r_idx, starts, ends)
+        for key, (d, c) in enumerate(tables):
+            sc.submit(key, refk, d, c)
+        out[dev.type] = [sc.collect(key)["c"] for key in range(3)]
+        assert sc.programs_run == {kind}
+        assert len(sc._layout.slabs) == 2
+        sc.close()
+    assert fn.cuda_calls == before + 2  # one call per slab
+    for got, want in zip(out["cuda"], out["cpu"]):
+        for f, w in want.items():
+            np.testing.assert_array_equal(got[f], w, err_msg=f)
+    assert out["cuda"][0]["observed"].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("both_strands", [True, False])
+def test_window_scorer_gpu_matches_cpu(cuda_device, both_strands):
+    """Spliced-feature-like windows of 20..6000 bases, counts up to
+    2^32 - 1, through the hash engine on the card and on the CPU."""
+    rng = np.random.default_rng(13)
+    k = 25
+    genome, valid, _r, _i, db, dbc = _genome_case(rng, 100_000, k)
+    if not both_strands:
+        km, kv = pack_kmers(genome, valid, k)
+        db, dbc = np.unique(km[kv], return_counts=True)
+        dbc = dbc.astype(np.uint32)
+    dbc[::5] = rng.integers(1 << 31, 1 << 32, dbc[::5].shape[0],
+                            dtype=np.uint64).astype(np.uint32)
+    table = build_table(db, dbc, k, both_strands=both_strands)
+    lens = rng.integers(20, 6000, 40)
+    at = rng.integers(0, 100_000 - 6000, 40)
+    pad = 8192
+    bc, bv, wl = pad_batch_varlen(
+        [genome[a : a + n] for a, n in zip(at, lens)],
+        [valid[a : a + n] for a, n in zip(at, lens)], pad,
+    )
+    before = tlk.table_lookup.cuda_calls
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        out[dev.type] = tpl.WindowScorer(table, dev, min_count=2).score_batch(
+            bc, bv, wl)
+    assert tlk.table_lookup.cuda_calls == before + 1
+    for f, want in out["cpu"].items():
+        np.testing.assert_array_equal(out["cuda"][f], want, err_msg=f)
+    assert out["cuda"]["count_sum"].max() >= 1 << 31
