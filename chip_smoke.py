@@ -39,6 +39,21 @@ Phases (any failure exits non-zero):
                 genes shorter than k). Call counters, zeroed before each
                 run, show that each program ran on the card; prints
                 windows/s per engine and the dprefix_* stage seconds.
+  6. mesh     - the multi-device tier on the visible GPUs, or, with one
+                card, on a virtual mesh of 4 slots that all run on
+                cuda:0 (KCFTOOLS_TORCH_VIRTUAL_DEVICES=4; correct at full
+                data size, but no multi-GPU speed): ``--engine auto``
+                (must take dprefix, slabs on more than one slot);
+                ``--engine device -f window`` with KCFTOOLS_TABLE_AXIS=2
+                (the mesh-sharded hash engine, ``table_lookup``), streamed
+                by the loader and with ``--memory``; ``-f gene --engine
+                device`` on the mesh; every KCF equal to phase 4's / 5's
+                ``--engine hybrid`` bytes. Then ``MeshJoinScorer`` on a
+                (2, 2) mesh for the three samples against
+                ``DeviceJoinScorer`` (pjoin launches rising by the table
+                axis per sample) and ``dryrun_multichip(4)``. Prints each
+                run's wall time and windows/s under the card's name and
+                power limit.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -405,7 +420,8 @@ def _need(calls, name, what):
 
 def run_engines(root, ref, dbs, chrom_len, host_kcf, seed):
     """Phase 5 (see the module docstring). Returns the per-program call
-    counts of each run."""
+    counts of each run, and per feature kind the host engine's (KCF
+    paths, feature count)."""
     from kcftools_tpu_torch._host import sliding_windows, tiling_windows
 
     n_win = sum(len(tiling_windows(L, WINDOW, K)[0])
@@ -476,10 +492,12 @@ def run_engines(root, ref, dbs, chrom_len, host_kcf, seed):
     # gene / transcript features
     gtf = os.path.join(root, "smoke.gtf")
     n_feat = dict(zip(("gene", "transcript"), write_gtf(gtf, chrom_len, seed)))
+    host_feature_kcf = {}
     for feature in ("gene", "transcript"):
         args = ("-f", feature, "-g", gtf)
         times = {}
         h_s, _, h_kcf = drive(f"host_{feature}", dbs, "hybrid", args=args)
+        host_feature_kcf[feature] = (h_kcf, n_feat[feature])
         times["hybrid"] = h_s
         for engine, program in (("device", "table_lookup"),
                                 ("dprefix", None)):
@@ -503,6 +521,168 @@ def run_engines(root, ref, dbs, chrom_len, host_kcf, seed):
         fail("jax was imported")
     log(f"engines: all phase-5 runs equal the host engine; jax not loaded; "
         f"calls per run {json.dumps(out)}")
+    return out, host_feature_kcf
+
+
+# -- phase 6: the multi-device tier ---------------------------------------
+
+MESH_SLOTS = 4  # virtual slots on cuda:0 when only one card is visible
+MESH_TABLE_AXIS = 2
+
+
+def _mesh_env():
+    """The environment of the phase-6 runs, and the label of their times."""
+    n_gpu = torch.cuda.device_count()
+    if n_gpu > 1:
+        return {}, f"{n_gpu} GPUs"
+    return ({"KCFTOOLS_TORCH_DEVICE": "cuda:0",
+             "KCFTOOLS_TORCH_VIRTUAL_DEVICES": str(MESH_SLOTS)},
+            f"virtual mesh: {MESH_SLOTS} slots on one card (no multi-GPU "
+            "speed)")
+
+
+def _mesh_join(ref, dbs, env):
+    """MeshJoinScorer on a (data, 2) mesh against DeviceJoinScorer for
+    every sample; returns (single s, mesh s, launches per sample)."""
+    from kcftools_tpu_torch._host import (
+        FastaIndex,
+        RefKmerIndex,
+        load_sorted_cache,
+        tiling_windows,
+    )
+    from kcftools_tpu_torch.engine.device_join import (
+        DeviceJoinScorer,
+        MeshJoinScorer,
+    )
+    from kcftools_tpu_torch.ops.pjoin import pjoin_join
+    from kcftools_tpu_torch.parallel.mesh import make_mesh
+    from kcftools_tpu_torch.torchinit import resolve_devices
+
+    index = FastaIndex(ref)
+    refidx = RefKmerIndex.load_or_build(ref, index, K, canonical=True)
+    tables = []
+    for prefix in dbs:
+        cached = load_sorted_cache(prefix, K)
+        if cached is None:
+            fail(f"mesh join: no sorted sidecar for {prefix}")
+        tables.append(cached)
+    with _environ(**env):
+        slots = resolve_devices()
+    mesh = make_mesh(data=len(slots) // MESH_TABLE_AXIS,
+                     table=MESH_TABLE_AXIS, devices=slots)
+    res, secs, launches = {}, {}, 0
+    for name in ("single", "mesh"):
+        if name == "single":
+            sc = DeviceJoinScorer(refidx, K, slots[0].device)
+        else:
+            sc = MeshJoinScorer(refidx, K, mesh)
+        for chrom in index.get_sequence_names():
+            starts, ends = tiling_windows(index.get_sequence_length(chrom),
+                                          WINDOW, K)
+            sc.add_chrom(chrom, refidx.chrom_r_idx[chrom], starts, ends)
+        before = pjoin_join.launches_packed + pjoin_join.launches_u32
+        t0 = time.perf_counter()
+        for key, (keys, counts) in enumerate(tables):
+            sc.submit(key, refidx.kmers, keys, counts)
+        res[name] = [sc.collect(key) for key in range(len(tables))]
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        if name == "mesh":
+            launches = (pjoin_join.launches_packed + pjoin_join.launches_u32
+                        - before)
+            if launches != MESH_TABLE_AXIS * len(tables):
+                fail(f"mesh join: {launches} pjoin launches for "
+                     f"{len(tables)} samples, want {MESH_TABLE_AXIS} each")
+            if sorted(sc._q) != list(range(MESH_TABLE_AXIS)):
+                fail(f"mesh join: query tiles on columns {sorted(sc._q)}")
+        sc.close()
+    for key, (got, want) in enumerate(zip(res["mesh"], res["single"])):
+        for chrom, fields in want.items():
+            for f, w in fields.items():
+                if not np.array_equal(got[chrom][f], w):
+                    fail(f"mesh join: sample {key} {chrom} {f} differs "
+                         "from the single-device join")
+    return secs["single"], secs["mesh"], launches // len(tables)
+
+
+def run_mesh(root, ref, dbs, chrom_len, host_kcf, host_gene, smi):
+    """Phase 6 (see the module docstring). ``host_gene`` is phase 5's
+    (hybrid -f gene KCF paths, gene count) over root/smoke.gtf. Returns
+    the call counts of each run."""
+    from kcftools_tpu_torch._host import tiling_windows
+    from kcftools_tpu_torch.dryrun import dryrun_multichip
+    from kcftools_tpu_torch.engine import device_prefix as tdp
+
+    env, label = _mesh_env()
+    n_win = sum(len(tiling_windows(L, WINDOW, K)[0])
+                for L in chrom_len.values())
+    total = n_win * len(dbs)
+    stage_json = os.path.join(root, "stages6.json")
+    out = {}
+    spread = []  # slots holding dprefix slabs, per scorer built
+    build = tdp.DevicePrefixScorer._build_statics
+
+    def _recording_build(self):
+        build(self)
+        spread.append(len({s for st in self._statics for s in st["pool"]}))
+
+    def drive(name, engine, args=WINDOW_ARGS, dbs_=dbs, **extra):
+        _zero_calls()
+        res = run_cli(ref, dbs_, os.path.join(root, name), engine,
+                      stage_json, args=args, env={**env, **extra})
+        out[name] = _read_calls()
+        return res
+
+    tdp.DevicePrefixScorer._build_statics = _recording_build
+    try:
+        a_s, a_st, a_kcf = drive("mesh_auto", "auto",
+                                 KCFTOOLS_NO_DEVICE_PROBE="")
+    finally:
+        tdp.DevicePrefixScorer._build_statics = build
+    _need(out["mesh_auto"], "score_runs", "auto on the mesh")
+    if not spread or min(spread) < 2:
+        fail(f"auto: dprefix slabs on {spread} slot(s), want > 1")
+    check_same(a_kcf, host_kcf, n_win, "auto on the mesh")
+    times = {"mesh_auto": (a_s, total, a_st)}
+
+    for name, args in (("mesh_device", WINDOW_ARGS),
+                       ("mesh_device_memory", WINDOW_ARGS + ("--memory",))):
+        d_s, d_st, d_kcf = drive(name, "device", args=args,
+                                 KCFTOOLS_TABLE_AXIS=str(MESH_TABLE_AXIS))
+        _need(out[name], "table_lookup", name)
+        check_same(d_kcf, host_kcf, n_win, name)
+        times[name] = (d_s, total, d_st)
+
+    host_gene_kcf, n_genes = host_gene
+    gtf = os.path.join(root, "smoke.gtf")
+    g_s, g_st, g_kcf = drive("mesh_gene", "device", args=("-f", "gene",
+                                                          "-g", gtf),
+                             KCFTOOLS_TABLE_AXIS=str(MESH_TABLE_AXIS))
+    _need(out["mesh_gene"], "table_lookup", "gene on the mesh")
+    check_same(g_kcf, host_gene_kcf, n_genes, "gene on the mesh")
+    times["mesh_gene"] = (g_s, n_genes * len(dbs), g_st)
+    if "jax" in sys.modules:
+        fail("jax was imported")
+
+    single_s, mesh_s, per_sample = _mesh_join(ref, dbs, env)
+    t0 = time.perf_counter()
+    with _environ(**env):
+        dryrun_multichip(MESH_SLOTS if env else torch.cuda.device_count())
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+
+    log(f"mesh: {smi} - {label}")
+    for name, (secs, windows, stages) in times.items():
+        log(f"mesh: {name}: KCF bytes equal the host engine's; {secs} s "
+            f"({windows / secs} windows/s); stages {json.dumps(stages)}; "
+            f"calls {out[name]}")
+    log(f"mesh: auto took dprefix with slabs on {spread} slot(s)")
+    log(f"mesh: MeshJoinScorer (data x table = "
+        f"{(MESH_SLOTS if env else torch.cuda.device_count()) // MESH_TABLE_AXIS}"
+        f" x {MESH_TABLE_AXIS}) equals DeviceJoinScorer on {len(dbs)} "
+        f"samples; {per_sample} pjoin launches per sample; submit+collect "
+        f"{mesh_s} s against {single_s} s on one device")
+    log(f"mesh: dryrun_multichip passed in {dry_s} s; jax not loaded")
     return out
 
 
@@ -550,7 +730,10 @@ def main():
         log(f"data: {args.mbp} Mbp reference, {len(dbs)} samples in "
             f"{time.perf_counter() - t0} s")
         launches, host_kcf = run_slice(root, ref, dbs, chrom_len)
-        run_engines(root, ref, dbs, chrom_len, host_kcf, args.seed)
+        _calls5, feature_kcf = run_engines(root, ref, dbs, chrom_len,
+                                           host_kcf, args.seed)
+        run_mesh(root, ref, dbs, chrom_len, host_kcf, feature_kcf["gene"],
+                 smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

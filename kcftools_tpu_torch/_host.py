@@ -65,9 +65,17 @@ from kcftools_tpu.engine.encode import (  # noqa: E402
     split_hi_lo,
 )
 from kcftools_tpu.engine.hashtable import (  # noqa: E402
+    BUCKET_SLOTS,
     KmerTable,
     bucket_hashes_np,
+    build_fixed,
+    build_sharded_hilo,
     build_table,
+    suggest_buckets,
+)
+from kcftools_tpu.engine.prefix_scan import (  # noqa: E402
+    chromosome_stats_indirect,
+    window_stats,
 )
 from kcftools_tpu.engine.refindex import (  # noqa: E402
     FeatureKmerIndex,
@@ -77,6 +85,7 @@ from kcftools_tpu.io.fasta import FastaIndex  # noqa: E402
 from kcftools_tpu.io.gtf import GTF  # noqa: E402
 from kcftools_tpu.engine.windows import (  # noqa: E402
     PAD_MARGIN,
+    batch_subsequences,
     bucket_pad_len,
     pad_batch_varlen,
     sliding_windows,
@@ -96,6 +105,7 @@ from kcftools_tpu.native import (  # noqa: E402
     merge_counts_u8,
     ordpack,
     pack_posbits,
+    route_shard,
     set_threads,
     sort_pairs,
 )
@@ -105,6 +115,7 @@ from kcftools_tpu.utils import stagetimer  # noqa: E402
 from kcftools_tpu.utils.logger import KcfError, Logger  # noqa: E402
 
 __all__ = [
+    "BUCKET_SLOTS",
     "FastaIndex",
     "FeatureKmerIndex",
     "GTF",
@@ -121,12 +132,16 @@ __all__ = [
     "__version__",
     "_common",
     "_uniform_window_map",
+    "batch_subsequences",
     "bits_to_runs",
     "bucket_hashes_np",
     "bucket_pad_len",
+    "build_fixed",
     "build_ordmap",
+    "build_sharded_hilo",
     "build_table",
     "canonicalize",
+    "chromosome_stats_indirect",
     "get_lib",
     "get_variations",
     "load_sorted_cache",
@@ -135,11 +150,14 @@ __all__ = [
     "pack_kmers",
     "pack_posbits",
     "pad_batch_varlen",
+    "route_shard",
     "set_threads",
     "sliding_windows",
     "sort_pairs",
     "split_hi_lo",
     "stagetimer",
+    "suggest_buckets",
     "tiling_windows",
+    "window_stats",
     "write_kmc_db",
 ]

@@ -4,9 +4,10 @@ The same subcommands, flags and output bytes as ``kcftools_tpu.cli``:
 the JAX package's host plugins, with the port's getVariations (whose
 ``--engine device`` and ``--engine dprefix`` run on the GPU).
 ``KCFTOOLS_PROFILE=<dir>`` records a torch.profiler trace of the command
-into ``<dir>/trace.json``.
-Multi-process runs (``KCFTOOLS_NUM_PROCS`` > 1) are not yet ported and
-exit with an error.
+into ``<dir>/trace.json``. A multi-process run joins a torch.distributed
+process group first: ``KCFTOOLS_COORDINATOR=host:port
+KCFTOOLS_NUM_PROCS=N KCFTOOLS_PROC_ID=i`` (NCCL on CUDA devices, gloo on
+the CPU); the device mesh then spans every process's devices.
 """
 
 import argparse
@@ -34,6 +35,20 @@ def build_parser():
     return parser
 
 
+def _maybe_init_distributed():
+    """Join the process group named by the environment (no-op for a
+    single process)."""
+    n = int(os.environ.get("KCFTOOLS_NUM_PROCS", "1"))
+    if n > 1:
+        from .parallel.mesh import init_distributed
+
+        init_distributed(
+            os.environ.get("KCFTOOLS_COORDINATOR"),
+            n,
+            int(os.environ.get("KCFTOOLS_PROC_ID", "0")),
+        )
+
+
 def _profiler():
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -44,17 +59,16 @@ def _profiler():
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     args = build_parser().parse_args(argv)
+    try:
+        _maybe_init_distributed()
+    except KcfError:
+        return 1
     start = time.time()
     profile_dir = os.environ.get("KCFTOOLS_PROFILE")
     prof = _profiler() if profile_dir else None
     if prof is not None:
         prof.start()
     try:
-        if int(os.environ.get("KCFTOOLS_NUM_PROCS", "1")) > 1:
-            Logger.error(
-                "KCFTOOLS", "KCFTOOLS_NUM_PROCS > 1: multi-process runs "
-                "are not yet ported (ROADMAP)"
-            )
         args.func(args)
     except KcfError:
         return 1

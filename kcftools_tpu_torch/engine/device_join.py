@@ -27,6 +27,10 @@ sums - one int64 cumsum is exact. The slab size keeps its environment
 names (``KCFTOOLS_DJOIN_SLAB``, then ``KCFTOOLS_DPREFIX_SLAB``) and its
 2^24 default, which still has to be re-measured on the H100.
 
+``MeshJoinScorer`` runs the same engine over a (data, table) mesh
+(parallel/mesh.py): one join per table shard, the routed counts
+gathered in table order, each data row scanning its own slabs.
+
 With ``KCFTOOLS_STAGE_JSON`` set, the per-sample phases are timed as
 the stages djoin_pack, djoin_upload, djoin_join, djoin_scan and
 djoin_fetch, with a device synchronisation at the end of each phase;
@@ -48,6 +52,7 @@ from ..ops.pjoin import (
     raw_quantile_ids,
     tile_sorted,
 )
+from ..parallel.mesh import all_gather_columns
 from .device_prefix import (
     _FIELDS,
     _Layout,
@@ -141,23 +146,27 @@ class DeviceJoinScorer:
         )
 
         self._layout.finalize()
-        statics = []
-        for slab in self._layout.slabs:
-            r_idx = slab["r_idx"]
-            live = r_idx >= 0
-            slot_map = np.zeros(self._layout.pos_pad, np.int32)
-            slot_map[live] = slot_of_ord[r_idx[live]]
-            vbits = np.zeros(self._layout.pos_pad // 8, np.uint8)
-            packed = np.packbits(live, bitorder="little")
-            vbits[: packed.shape[0]] = packed
-            statics.append(tuple(
-                torch.from_numpy(a).to(self.device)
-                for a in (
-                    slot_map, vbits, slab["w_start"].astype(np.int64),
-                    slab["w_hi"].astype(np.int64),
-                )
-            ))
-        self._statics = statics
+        self._statics = [
+            self._slab_statics(slab, slot_of_ord, self.device)
+            for slab in self._layout.slabs
+        ]
+
+    def _slab_statics(self, slab, slot_of_ord, dev):
+        """One slab's (slot map, valid bitmap, w_start, w_hi) on dev."""
+        r_idx = slab["r_idx"]
+        live = r_idx >= 0
+        slot_map = np.zeros(self._layout.pos_pad, np.int32)
+        slot_map[live] = slot_of_ord[r_idx[live]]
+        vbits = np.zeros(self._layout.pos_pad // 8, np.uint8)
+        packed = np.packbits(live, bitorder="little")
+        vbits[: packed.shape[0]] = packed
+        return tuple(
+            torch.from_numpy(a).to(dev)
+            for a in (
+                slot_map, vbits, slab["w_start"].astype(np.int64),
+                slab["w_hi"].astype(np.int64),
+            )
+        )
 
     # -- per-sample ------------------------------------------------------
 
@@ -250,14 +259,22 @@ class DeviceJoinScorer:
             ).view(-1)
             del tiles, th, tl, tc
         with _phase("djoin_scan", dev):
-            res = torch.empty(
-                (len(self._statics), len(_JFIELDS), self._layout.win_pad),
-                dtype=torch.int64, device=dev,
-            )
-            for si, (sm, vb, ws, wh) in enumerate(self._statics):
-                res[si] = _slab_scan(flat, sm, vb, ws, wh, k=self.k,
-                                     min_count=self.min_count)
-        self._handles[key] = res
+            self._handles[key] = self._scan_slabs(flat, self._statics)
+
+    def _scan_slabs(self, flat, statics):
+        """(len(statics), 6, win_pad) int64 stats of the given slabs."""
+        res = torch.empty(
+            (len(statics), len(_JFIELDS), self._layout.win_pad),
+            dtype=torch.int64, device=flat.device,
+        )
+        for si, (sm, vb, ws, wh) in enumerate(statics):
+            res[si] = _slab_scan(flat, sm, vb, ws, wh, k=self.k,
+                                 min_count=self.min_count)
+        return res
+
+    def _fetch(self, handle):
+        """A sample's (S, 6, win_pad) result on the host."""
+        return handle.cpu().numpy()
 
     def submit_counts(self, key, counts_u8, exc_idx, exc_val):
         raise NotImplementedError(
@@ -269,7 +286,7 @@ class DeviceJoinScorer:
         if key in self._results:
             return self._results[key]
         with _phase("djoin_fetch", self.device):
-            arr = self._handles.pop(key).cpu().numpy()  # (S, 6, win_pad)
+            arr = self._fetch(self._handles.pop(key))  # (S, 6, win_pad)
         out = {
             name: {f: np.zeros(nw, np.int64) for f in _JFIELDS}
             for name, nw in self._layout.chrom_n_win.items()
@@ -293,3 +310,112 @@ class DeviceJoinScorer:
     def close(self):
         self._handles.clear()
         self._results.clear()
+
+
+class MeshJoinScorer(DeviceJoinScorer):
+    """The device join over a (data, table) mesh: the quantile
+    partitions shard across the TABLE axis (each table column holds P/t
+    of the reference query tiles and receives P/t of every sample's
+    table tiles, so no device holds the whole table), the genome's slabs
+    across the DATA axis. Per sample: one ``pjoin_join`` launch per
+    table shard, the routed counts gathered in table order (so the
+    static slot maps index them as on one device), then each data row
+    scans its own slabs. Output identical to DeviceJoinScorer.
+
+    The JAX scorer pads the slab count to the data axis with all-invalid
+    dummy slabs so that one program shards evenly; here each data row
+    takes a contiguous range of ceil(S / data) slabs and the dummies are
+    simply not scanned."""
+
+    def __init__(self, refidx, k, mesh, min_count=1, batch=None,
+                 tile_target=512):
+        t_axis = mesh.shape["table"]
+        if t_axis < 1 or t_axis & (t_axis - 1):
+            raise ValueError(
+                f"MeshJoinScorer: table axis {t_axis} is not a power of "
+                "two; the join's 2^b quantile partitions split evenly only "
+                "over a power-of-two table axis"
+            )
+        super().__init__(refidx, k, mesh.local_slots()[0].device,
+                         min_count=min_count, batch=batch,
+                         tile_target=tile_target)
+        self.mesh = mesh
+        self.t_axis = t_axis
+        self.d_axis = mesh.shape["data"]
+
+    def _finalize(self):
+        if self._statics is not None:
+            return
+        mesh = self.mesh
+        n_ref = self._refk.shape[0]
+        b = self._pick_b(n_ref)
+        while (1 << b) < self.t_axis:
+            b += 1
+        qh, ql, _tc, rank, part = tile_sorted(self._refk, self.k, b)
+        self.P = 1 << b
+        self.Tq = qh.shape[1]
+        slot_of_ord = (part * self.Tq + rank).astype(np.int64)
+        pt = self.P // self.t_axis
+        # table column -> its query tiles on the column's device
+        self._q = {
+            ti: tuple(
+                as_i32(a[ti * pt : (ti + 1) * pt]).to(mesh.column_device(ti))
+                for a in (qh, ql)
+            )
+            for ti in mesh.local_columns()
+        }
+        Logger.info(
+            _CLASS,
+            f"Reference routed: {n_ref} k-mers -> {self.P} x {self.Tq} "
+            f"query tiles across table={self.t_axis}",
+        )
+        self._layout.finalize(n_parts=self.d_axis)
+        slabs = self._layout.slabs
+        per = -(-max(len(slabs), 1) // self.d_axis)
+        # data row -> (device, statics of its slabs)
+        self._statics = []
+        for di in range(self.d_axis):
+            dev = mesh.row_device(di)
+            self._statics.append((dev, [
+                self._slab_statics(slab, slot_of_ord, dev)
+                for slab in slabs[di * per : (di + 1) * per]
+            ]))
+
+    def submit(self, key, ref_keys, db_keys, db_counts):
+        self._finalize()
+        slots = self.mesh.local_slots()
+        with _phase("djoin_pack"):
+            db_counts = np.ascontiguousarray(db_counts, np.uint32)
+            buf, Tt, packed = self._pack_tiles(db_keys, db_counts)
+        nt = self.P * Tt
+        pt = self.P // self.t_axis
+        planes = (
+            buf[:nt].reshape(self.P, Tt),
+            buf[nt : 2 * nt].reshape(self.P, Tt),
+            buf[2 * nt :].reshape(self.P, -1),
+        )
+        with _phase("djoin_upload", *slots):
+            tiles = {
+                ti: [as_i32(a[ti * pt : (ti + 1) * pt]).to(q[0].device)
+                     for a in planes]
+                for ti, q in self._q.items()
+            }
+        with _phase("djoin_join", *slots):
+            routed = all_gather_columns(
+                {
+                    ti: pjoin_join(*self._q[ti], *tiles[ti], packed=packed)
+                    for ti in self._q
+                },
+                self.t_axis,
+            )
+            del tiles
+        with _phase("djoin_scan", *slots):
+            self._handles[key] = [
+                self._scan_slabs(
+                    torch.cat([r.to(dev) for r in routed]).view(-1), statics
+                )
+                for dev, statics in self._statics
+            ]
+
+    def _fetch(self, handle):
+        return np.concatenate([h.cpu().numpy() for h in handle])

@@ -22,10 +22,16 @@ keeps a uint32 modular prefix. The group's sample rows are scanned one
 at a time: a row's scan holds about a dozen slab-sized int64
 temporaries, too many to hold for 16 rows at once.
 
+Over several devices (``devices=``, a list of mesh slots) the genome's
+slabs spread across the slots; with more slots than slabs each slab gets
+a pool of slots and a group's sample rows split across the pool, as in
+the JAX engine. Every slab and pool slot is dispatched before anything
+is fetched. Slots that share a device share their static tensors.
+
 Dropped from the JAX engine because they were TPU-only: padding a group
 to ``batch`` rows (one compiled program) - only the real rows are
 scanned; the asynchronous device-to-host copy - ``collect`` copies
-synchronously. The sample-axis device pool is multi-GPU work (ROADMAP).
+synchronously.
 
 With ``KCFTOOLS_STAGE_JSON`` set, the phases are timed as the stages
 dprefix_pack, dprefix_upload, dprefix_scan and dprefix_fetch (and
@@ -48,6 +54,7 @@ from .._host import (
     pack_posbits,
     stagetimer,
 )
+from ..torchinit import Slot, process_index, sync_devices
 
 _POS_BUCKET = 1 << 20  # slab position padding granularity
 _WIN_BUCKET = 1 << 10  # slab window padding granularity
@@ -69,18 +76,19 @@ def _pad_u8(arr, cap):
 
 
 class _phase(stagetimer.stage):
-    """A stagetimer stage that first waits for the device's queued work,
-    so that device time lands in the phase that queued it."""
+    """A stagetimer stage that first waits for the queued work of every
+    device it names (torch devices or mesh slots), so that device time
+    lands in the phase that queued it."""
 
-    __slots__ = ("device",)
+    __slots__ = ("devices",)
 
-    def __init__(self, name, device):
+    def __init__(self, name, *devices):
         super().__init__(name)
-        self.device = device
+        self.devices = devices
 
     def __exit__(self, *exc):
-        if self.on and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if self.on:
+            sync_devices(self.devices)
         return super().__exit__(*exc)
 
 
@@ -177,25 +185,27 @@ def _runs_presence(dl, valid):
 
     Absent stretches are disjoint, so +1 at each run's start, -1 at its
     end and one prefix sum give 1 exactly inside a run. Empty entries
-    (fillers and padding) add +1 and -1 at one position and are left
-    out, so no position takes more than one +1 and one -1 and the int8
-    prefix stays in {0, 1}; starts and ends at or past n (a trailing run
-    that ends at n) are dropped. Positions the encoding trims or skips
-    are invalid and masked by ``valid``, so the result is exact."""
+    (fillers and padding) add +1 and -1 at one position and are sent to
+    a discarded position n instead, so no position below n takes more
+    than one +1 and one -1 and the int8 prefix stays in {0, 1}; starts
+    and ends at or past n (a trailing run that ends at n) go there too.
+    Positions the encoding trims or skips are invalid and masked by
+    ``valid``, so the result is exact. No step waits for the host (no
+    boolean-mask indexing), so the scans of several devices overlap."""
     n = valid.shape[0]
     d = dl[0].long()
     ln = dl[1].long()
     ends = torch.cumsum(d + ln, 0)
     starts = ends - ln
-    delta = torch.zeros(n, dtype=torch.int8, device=valid.device)
+    delta = torch.zeros(n + 1, dtype=torch.int8, device=valid.device)
     for idx, v in ((starts, 1), (ends, -1)):
-        idx = idx[(ln > 0) & (idx < n)]
+        idx = torch.where((ln > 0) & (idx < n), idx, n)
         delta.index_put_(
             (idx,), torch.full(idx.shape, v, dtype=torch.int8,
                                device=idx.device),
             accumulate=True,
         )
-    absent = torch.cumsum(delta, 0, dtype=torch.int8) > 0
+    absent = torch.cumsum(delta[:n], 0, dtype=torch.int8) > 0
     return ~absent & valid
 
 
@@ -364,7 +374,7 @@ _FIELDS = ("observed", "variations", "inner", "left", "right")
 
 class DevicePrefixScorer:
     """Per-reference device state + batched per-sample scoring, on one
-    device.
+    device or over a list of mesh slots (``devices``).
 
     Single-sample flow (plugin compatibility):
         add_chrom(...) per chromosome, then per sample
@@ -379,14 +389,17 @@ class DevicePrefixScorer:
     Samples accumulate into a pending group; when ``batch`` samples are
     queued (or the first collect of one of them arrives) the group is
     uploaded as one tensor per slab and scored by one program call per
-    slab. ``programs_run`` holds the programs dispatched so far:
-    "runs" (``_score_runs``) and/or "bits" (``_score_batch``).
+    slab (per pool slot). ``programs_run`` holds the programs dispatched
+    so far: "runs" (``_score_runs``) and/or "bits" (``_score_batch``).
     """
 
-    def __init__(self, refidx, k, device, min_count=1, batch=None):
+    def __init__(self, refidx, k, device=None, min_count=1, batch=None,
+                 devices=None):
         self.k = int(k)
         self.min_count = int(min_count)
-        self.device = torch.device(device)
+        if devices is None:
+            devices = [Slot(0, torch.device(device), process_index())]
+        self.devices = list(devices)
         if batch is None:
             batch = int(os.environ.get("KCFTOOLS_DEVICE_BATCH", "8"))
         self.batch = max(1, int(batch))
@@ -422,17 +435,24 @@ class DevicePrefixScorer:
 
     def _finalize(self):
         if self._statics is None:
-            with _phase("dprefix_setup", self.device):
+            with _phase("dprefix_setup", *self.devices):
                 self._build_statics()
 
     def _build_statics(self):
-        """Per-slab device tensors (valid prefix, window bounds) and
-        host pack maps (valid bitmap, occurrence map)."""
-        self._layout.finalize()
-        dev = self.device
+        """Per-slab host pack maps (valid bitmap, occurrence map) and,
+        on each slot of the slab's pool, its device tensors (valid
+        prefix, window bounds). Slabs go round-robin over the slots;
+        with more slots than slabs each slab gets a pool of ``spread``
+        slots, over which a group's sample rows split."""
+        n_dev = len(self.devices)
+        self._layout.finalize(n_parts=n_dev)
+        spread = max(1, n_dev // max(1, len(self._layout.slabs)))
+        self._spread = spread
         nbb = self._layout.pos_pad // 8
         self._statics = []
-        for slab in self._layout.slabs:
+        for si, slab in enumerate(self._layout.slabs):
+            pool = [self.devices[(si * spread + j) % n_dev]
+                    for j in range(spread)]
             nw = slab["n_win"]
             ws = slab["w_start"][:nw]
             wh = slab["w_hi"][:nw]
@@ -446,12 +466,21 @@ class DevicePrefixScorer:
             valid_bits = np.zeros(nbb, np.uint8)
             packed = np.packbits(slab["r_idx"] >= 0, bitorder="little")
             valid_bits[: packed.shape[0]] = packed
+            on_dev = {}  # torch device -> (cs_tot, w_start, w_hi)
+            for slot in pool:
+                if slot.device not in on_dev:
+                    dev = slot.device
+                    on_dev[dev] = (
+                        _cs_tot(torch.from_numpy(valid_bits).to(dev)),
+                        torch.from_numpy(
+                            slab["w_start"].astype(np.int64)).to(dev),
+                        torch.from_numpy(
+                            slab["w_hi"].astype(np.int64)).to(dev),
+                    )
             st = {
-                "cs_tot": _cs_tot(torch.from_numpy(valid_bits).to(dev)),
-                "w_start": torch.from_numpy(
-                    slab["w_start"].astype(np.int64)).to(dev),
-                "w_hi": torch.from_numpy(
-                    slab["w_hi"].astype(np.int64)).to(dev),
+                "pool": pool,
+                # per pool slot: (cs_tot, w_start, w_hi)
+                "tensors": [on_dev[slot.device] for slot in pool],
                 # static valid bitmap for the run encoder (host)
                 "valid_bits": valid_bits,
                 "fusable": fusable,
@@ -515,7 +544,7 @@ class DevicePrefixScorer:
         exc_val = np.ascontiguousarray(exc_val, np.uint32)
         slot = {"key": key, "bits": [], "runs": []}
         count_sums = []
-        with _phase("dprefix_pack", self.device):
+        with _phase("dprefix_pack"):
             self._pack_sample(
                 slot, count_sums, counts_u8, exc_idx, exc_val,
                 self.uplink != "bitmap",
@@ -619,15 +648,16 @@ class DevicePrefixScorer:
             self._jobs[slot["key"]] = (token, row)
 
     def _dispatch_group(self, group, kind):
-        """One upload and one program call per slab for the group's
-        rows. Returns the per-slab (5, S, win_pad) int64 device
-        results."""
+        """One upload and one program call per slab and pool slot for
+        the group's rows: the rows split into chunks of
+        ceil(batch / spread), one chunk per pool slot. Returns, per
+        slab, the pool slots' (5, rows, win_pad) int64 device results."""
         fn = _score_runs if kind == "runs" else _score_batch
         self.programs_run.add(kind)
-        dev = self.device
+        chunk = -(-self.batch // self._spread)
         handles = []
         for si, st in enumerate(self._statics):
-            with _phase("dprefix_pack", dev):
+            with _phase("dprefix_pack"):
                 if kind == "runs":
                     # a slot is padded to the budget of its pack time:
                     # size the payload by the slots, so that no queued
@@ -640,19 +670,29 @@ class DevicePrefixScorer:
                         mat[r, 1, : l.shape[0]] = l
                 else:
                     mat = np.stack([slot["bits"][si] for slot in group])
-            with _phase("dprefix_upload", dev):
-                payload = torch.from_numpy(mat).to(dev)
-            with _phase("dprefix_scan", dev):
-                handles.append(fn(payload, st["cs_tot"], st["w_start"],
-                                  st["w_hi"], k=self.k))
+            slab_handles = []
+            for j, (slot, tensors) in enumerate(zip(st["pool"],
+                                                    st["tensors"])):
+                if j * chunk >= len(group):
+                    break
+                with _phase("dprefix_upload", slot):
+                    payload = torch.from_numpy(
+                        mat[j * chunk : (j + 1) * chunk]).to(slot.device)
+                with _phase("dprefix_scan", slot):
+                    slab_handles.append(fn(payload, *tensors, k=self.k))
+            handles.append(slab_handles)
         return handles
 
     def _take_group(self, token):
-        """Fetch (once) and cache a dispatched group's result arrays."""
+        """Fetch (once) and cache a dispatched group's result arrays,
+        joining the row chunks of each slab's pool."""
         arrs = self._group_handles[token]
         if arrs and not isinstance(arrs[0], np.ndarray):
-            with _phase("dprefix_fetch", self.device):
-                arrs = [h.cpu().numpy() for h in arrs]
+            with _phase("dprefix_fetch", *self.devices):
+                arrs = [
+                    np.concatenate([h.cpu().numpy() for h in slab], axis=1)
+                    for slab in arrs
+                ]
             self._group_handles[token] = arrs
         return arrs
 
@@ -699,6 +739,23 @@ class DevicePrefixScorer:
     def score_chrom(self, name):
         """Single-sample flow: stats for one chromosome."""
         return self.collect(None)[name]
+
+    def devices_used(self):
+        """Distinct slots holding slab state (for tests/telemetry)."""
+        self._finalize()
+        return {slot for st in self._statics for slot in st["pool"]}
+
+    def sample_rows_devices(self):
+        """Distinct slots that would execute a full group's sample rows
+        (the sample-axis spread; for dryrun assertions)."""
+        self._finalize()
+        chunk = -(-self.batch // self._spread)
+        return {
+            slot
+            for st in self._statics
+            for j, slot in enumerate(st["pool"])
+            if j * chunk < self.batch
+        }
 
     def discard(self, key=None):
         self._results.pop(key, None)

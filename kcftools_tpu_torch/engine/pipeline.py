@@ -18,9 +18,11 @@ Data/Fasta.java:140-167) uses the same running-max trick on base-level
 validity runs.
 
 All sums are int64: the count sum is exact, where the JAX version sums
-in float64 (exact below 2^53). The chunked interface (``_score_chunk``,
-``score_chunk_async``) serves only the multi-device window path and is
-not ported yet (ROADMAP).
+in float64 (exact below 2^53). Besides padded window batches
+(``score_batch_async``), a scorer takes the chunked interface
+(``score_chunk_async``, ``_score_chunk``): one chromosome chunk uploaded
+once, its windows gathered on the device. The mesh-sharded version of
+this engine is parallel/sharded.py.
 """
 
 import numpy as np
@@ -151,16 +153,33 @@ def score_windows_core(codes, valid, win_len, lookup_fn, *, k: int,
     return res
 
 
-def _score_u8_batch(u8, win_len, tbl, *, k, min_count, both_strands):
-    """u8: (B, Lp) uint8 codes with SENTINEL marking invalid positions.
-    Returns one (8, B) int64 tensor (FIELDS order)."""
+def _score_u8_batch(u8, win_len, lookup_fn, *, k, min_count,
+                    both_strands):
+    """u8: (B, Lp) uint8 codes with SENTINEL marking invalid positions;
+    ``lookup_fn`` as for ``score_windows_core``. Returns one (8, B)
+    int64 tensor (FIELDS order)."""
     valid = u8 < int(SENTINEL)
     codes = torch.where(valid, u8, 0).long()
     res = score_windows_core(
-        codes, valid, win_len, lambda hi, lo: table_lookup(hi, lo, tbl),
+        codes, valid, win_len, lookup_fn,
         k=k, min_count=min_count, both_strands=both_strands,
     )
     return torch.stack([res[f] for f in FIELDS])
+
+
+def _score_chunk(chunk_u8, starts, win_len, tbl, *, Lp, k, min_count,
+                 both_strands):
+    """chunk_u8: (C,) uint8 sentinel codes of a chromosome chunk;
+    starts / win_len: (B,) int64. The windows are gathered on the
+    device, so the host uploads each base once. Returns (8, B) int64."""
+    idx = starts[:, None] + torch.arange(Lp, device=chunk_u8.device)
+    u8 = chunk_u8[torch.clamp(idx, max=chunk_u8.shape[0] - 1)]
+    pos = torch.arange(Lp, device=chunk_u8.device)[None, :]
+    u8 = torch.where(pos < win_len[:, None], u8, int(SENTINEL))
+    return _score_u8_batch(
+        u8, win_len, lambda hi, lo: table_lookup(hi, lo, tbl), k=k,
+        min_count=min_count, both_strands=both_strands,
+    )
 
 
 def combine_u8(codes: np.ndarray, valid: np.ndarray) -> np.ndarray:
@@ -201,15 +220,30 @@ class WindowScorer:
     def score_batch_async(self, codes, valid, win_len):
         """Dispatch one padded batch; returns the (8, B) device tensor."""
         u8 = combine_u8(np.asarray(codes), np.asarray(valid))
+        tbl = self.tbl
         return _score_u8_batch(
             torch.from_numpy(u8).to(self.device),
             torch.from_numpy(np.asarray(win_len, np.int64)).to(self.device),
-            self.tbl, k=self.k, min_count=self.min_count,
-            both_strands=self.both_strands,
+            lambda hi, lo: table_lookup(hi, lo, tbl), k=self.k,
+            min_count=self.min_count, both_strands=self.both_strands,
         )
 
     def score_batch(self, codes, valid, win_len):
         return self.collect(self.score_batch_async(codes, valid, win_len))
+
+    def score_chunk_async(self, chunk_u8, starts, win_len, Lp: int):
+        """chunk_u8: (C,) sentinel codes (a host array or a device
+        tensor); starts / win_len: (B,) window starts in the chunk and
+        lengths. Returns the (8, B) device tensor."""
+        if not isinstance(chunk_u8, torch.Tensor):
+            chunk_u8 = torch.from_numpy(np.asarray(chunk_u8, np.uint8))
+        return _score_chunk(
+            chunk_u8.to(self.device),
+            torch.from_numpy(np.asarray(starts, np.int64)).to(self.device),
+            torch.from_numpy(np.asarray(win_len, np.int64)).to(self.device),
+            self.tbl, Lp=int(Lp), k=self.k, min_count=self.min_count,
+            both_strands=self.both_strands,
+        )
 
     @staticmethod
     def collect(handle) -> dict:

@@ -55,25 +55,45 @@ def _as_i32(x):
     return (x - ((x >> 31) << 32)).to(torch.int32)
 
 
-def table_lookup(hi, lo, tbl):
+def table_lookup(hi, lo, tbl, nb_total=None, shard=0):
     """int64 counts in [0, 2^32) for queries (hi, lo) of any shape
     against the (nb, 3*S) int32 table; 0 for absent keys. A key lives in
     exactly one bucket, so where h1 == h2 the second probe is dropped.
+
+    With ``nb_total`` the table is shard ``shard`` (global buckets
+    [shard*nb, (shard+1)*nb)) of an ``nb_total``-bucket table under
+    shard-local placement (kcftools_tpu/parallel/sharded.py:33-75): a
+    key's owning shard is the top bits of its first bucket hash, and its
+    second candidate is that shard's base | the low bits of the second
+    hash. The result is then this shard's partial count (0 for keys it
+    does not own); the caller sums the partials over the table axis.
     ``table_lookup.cuda_calls`` counts its calls on a CUDA device."""
     if tbl.device.type == "cuda":
         table_lookup.cuda_calls += 1
     nb = tbl.shape[0]
     S = tbl.shape[1] // 3
-    h1, h2 = bucket_hashes(hi, lo, nb)
+    nb_total = nb if nb_total is None else int(nb_total)
+    lm = nb - 1
+    h1, h2 = bucket_hashes(hi, lo, nb_total)
+    b2 = (h1 & ~lm) | (h2 & lm)
+    base = int(shard) * nb
     qh = _as_i32(hi)[..., None]
     ql = _as_i32(lo)[..., None]
     out = torch.zeros(hi.shape, dtype=torch.int64, device=hi.device)
-    for b, dedup in ((h1, None), (h2, h2 != h1)):
+    for b, dedup in ((h1, None), (b2, b2 != h1)):
+        owned = None
+        if nb_total != nb:
+            # int64: the range test needs both bounds (no uint32 wrap)
+            b = b - base
+            owned = (b >= 0) & (b < nb)
+            b = torch.where(owned, b, 0)
         rows = tbl[b]  # (..., 3*S): one contiguous row per probe
         cnt = rows[..., 2 * S :]
         match = (rows[..., 0:S] == qh) & (rows[..., S : 2 * S] == ql) & (
             cnt != 0
         )
+        if owned is not None:
+            match &= owned[..., None]
         contrib = torch.where(match, cnt.long() & _M32, 0).sum(dim=-1)
         if dedup is not None:
             contrib = torch.where(dedup, contrib, 0)

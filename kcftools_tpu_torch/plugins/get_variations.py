@@ -5,7 +5,7 @@ Port of kcftools_tpu/plugins/get_variations.py::run. The parser, the
 validation, the window plan, the KMC ingest helpers and the per-sample
 assembly and KCF writer of the positional engines (``_run_one_sample``)
 are the JAX package's host code, reused as they are. What the port owns
-is the engine routing and the device engines, on one GPU:
+is the engine routing and the device engines. On one device:
 
 - ``--engine device``, window mode, k <= 32: the DeviceJoinScorer (the
   join on the card);
@@ -15,12 +15,16 @@ is the engine routing and the device engines, on one GPU:
 - ``--engine dprefix``, every mode and any k: the DevicePrefixScorer (the
   gap-run scans on the card), also behind the streamed low-memory
   ingest;
-- ``--engine hybrid``, and ``auto`` on at most one GPU, run the host
+- ``--engine hybrid``, and ``auto`` on at most one device, run the host
   engine (the native merge join and window scan), as the JAX package
   does.
 
-An engine choice that would spread over more than one GPU is not yet
-ported (ROADMAP) and raises; it never runs on another engine instead.
+On more than one device (``torchinit.resolve_devices``), as in the JAX
+package: ``auto`` takes dprefix, whose slabs spread over every slot;
+``--engine device`` (window and gene/transcript, k <= 32) takes the
+mesh-sharded hash engine (parallel/sharded.py), its table streamed onto
+the mesh by the loader (parallel/loader.py) unless ``--memory``, with a
+table axis sized from the table estimate or ``KCFTOOLS_TABLE_AXIS``.
 """
 
 import os
@@ -37,20 +41,27 @@ from .._host import (
     KCFWriter,
     KMCReader,
     Logger,
+    PAD_MARGIN,
     RefKmerIndex,
     _common,
+    batch_subsequences,
     bucket_pad_len,
     build_table,
     get_variations as _host,
     load_sorted_cache,
     pad_batch_varlen,
     set_threads,
+    sliding_windows,
     stagetimer,
+    tiling_windows,
 )
 from ..engine.device_join import DeviceJoinScorer
 from ..engine.device_prefix import DevicePrefixScorer
-from ..engine.pipeline import WindowScorer
-from ..torchinit import device_count, resolve_device
+from ..engine.pipeline import WindowScorer, combine_u8
+from ..parallel.loader import ShardedTableLoader
+from ..parallel.mesh import make_mesh
+from ..parallel.sharded import ShardedWindowScorer
+from ..torchinit import ENV, VIRTUAL_ENV, process_index, resolve_devices
 
 _CLASS = "GetVariants"
 
@@ -61,28 +72,29 @@ def add_parser(subparsers):
     return p
 
 
-def _not_ported(what):
-    Logger.error(_CLASS, f"{what} is not yet ported (ROADMAP)")
-
-
 def _resolve_engine(args):
     """The concrete engine for this run (see the module docstring).
     KCFTOOLS_ENGINE overrides --engine; KCFTOOLS_NO_DEVICE_PROBE=1 keeps
-    ``auto`` on the host engine without looking for GPUs."""
+    ``auto`` on the host engine without looking for devices, as does a
+    host without CUDA where no device was asked for."""
     engine = os.environ.get("KCFTOOLS_ENGINE") or args.engine
-    if engine == "auto":
-        if args.feature != "window" or os.environ.get(
-            "KCFTOOLS_NO_DEVICE_PROBE"
-        ):
-            return "hybrid"
-        n_dev = torch.cuda.device_count()
-        if n_dev > 1:
-            _not_ported(
-                f"auto engine with {n_dev} GPUs (the genome sharded "
-                "across GPUs)"
-            )
+    if engine != "auto":
+        return engine
+    if args.feature != "window" or os.environ.get("KCFTOOLS_NO_DEVICE_PROBE"):
         return "hybrid"
-    return engine
+    if not torch.cuda.is_available() and not (
+        os.environ.get(ENV) or os.environ.get(VIRTUAL_ENV)
+    ):
+        return "hybrid"
+    n_dev = len(resolve_devices())
+    if n_dev > 1:
+        Logger.info(
+            _CLASS,
+            f"auto engine: {n_dev} devices visible -> dprefix engine "
+            "(genome sharded across devices)",
+        )
+        return "dprefix"
+    return "hybrid"
 
 
 def run(args):
@@ -92,12 +104,11 @@ def run(args):
     _host._validate(args)
     stagetimer.reset()
     args.engine = _resolve_engine(args)
-    device = None
+    devices = []
     if args.engine in ("device", "dprefix"):
-        device = resolve_device()
-        n_dev = device_count(device)
-        if n_dev > 1:
-            _not_ported(f"--engine {args.engine} over {n_dev} GPUs")
+        devices = resolve_devices()
+    # the mesh-sharded hash engine takes --engine device on > 1 device
+    mesh_hash = args.engine == "device" and len(devices) > 1
     set_threads(args.threads)
     kmc_list = args.kmc.split(",")
     samples = [
@@ -133,7 +144,7 @@ def run(args):
         kmc = KMCReader(db_prefix, materialize=False)
         k = kmc.kmer_length
         positional = args.engine in ("hybrid", "dprefix") or (
-            args.feature == "window" and k <= 32
+            args.feature == "window" and k <= 32 and not mesh_hash
         )
         db_sorted = table = None
         with stagetimer.stage("ingest"):
@@ -148,7 +159,8 @@ def run(args):
                 ):
                     kmc._read_records()
                     db_sorted = _host._sort_db(kmc, k, db_prefix=db_prefix)
-            elif k <= 32:
+            elif k <= 32 and (args.memory or not mesh_hash):
+                # (the mesh without --memory streams the table instead)
                 if kmc.kmers is None:
                     kmc._read_records()
                 table = build_table(kmc.kmers, kmc.counts, k,
@@ -192,10 +204,16 @@ def run(args):
                     f"k={k} > 32 requires the hybrid or dprefix engine; "
                     "--engine device supports k <= 32",
                 )
+            if mesh_hash:
+                scorer = _make_mesh_scorer(args, kmc, db_prefix, table,
+                                           devices)
+                _run_hash_sample(args, index, gtf, k, scorer, sample,
+                                 out_path)
+                continue
             if hash_scorer is None or hash_scorer.k != k or (
                 hash_scorer.both_strands != kmc.both_strands
             ):
-                hash_scorer = WindowScorer(table, device,
+                hash_scorer = WindowScorer(table, devices[0].device,
                                            min_count=args.min_k_count)
             else:
                 hash_scorer.set_table(table)
@@ -221,7 +239,7 @@ def run(args):
             dscorer = None
         if args.engine in ("device", "dprefix") and dscorer is None:
             dscorer = _make_positional_scorer(
-                args, refidx, plan, k, device, len(kmc_list)
+                args, refidx, plan, k, devices, len(kmc_list)
             )
         if dscorer is not None:
             # submit now; assemble + write once the group fills
@@ -243,11 +261,11 @@ def run(args):
     stagetimer.dump()
 
 
-def _make_positional_scorer(args, refidx, plan, k, device, n_samples):
-    """The device-join (``--engine device``, window mode) or dprefix
-    scorer for one reference index, with its windows registered. A
-    group holds the run's sample count (capped at 16) unless
-    KCFTOOLS_DEVICE_BATCH sets it."""
+def _make_positional_scorer(args, refidx, plan, k, devices, n_samples):
+    """The device-join (``--engine device``, window mode, one device) or
+    dprefix scorer (over every local slot) for one reference index,
+    with its windows registered. A group holds the run's sample count
+    (capped at 16) unless KCFTOOLS_DEVICE_BATCH sets it."""
     batch = (
         min(n_samples, 16)
         if not os.environ.get("KCFTOOLS_DEVICE_BATCH")
@@ -255,11 +273,14 @@ def _make_positional_scorer(args, refidx, plan, k, device, n_samples):
     )
     if args.engine == "device":
         scorer = DeviceJoinScorer(
-            refidx, k, device, min_count=args.min_k_count, batch=batch
+            refidx, k, devices[0].device, min_count=args.min_k_count,
+            batch=batch,
         )
     else:
+        rank = process_index()
         scorer = DevicePrefixScorer(
-            refidx, k, device, min_count=args.min_k_count, batch=batch
+            refidx, k, min_count=args.min_k_count, batch=batch,
+            devices=[s for s in devices if s.process_index == rank],
         )
     if args.feature == "window":
         for name, pl in plan.items():
@@ -292,10 +313,49 @@ def _submit_sample(refidx, kmc, k, db_sorted, dscorer, key):
         dscorer.submit(key, ref_keys, db_keys, dbc)
 
 
+def _make_mesh_scorer(args, kmc, db_prefix, table, devices):
+    """The mesh-sharded hash engine for one sample (JAX
+    ``_make_scorer``, get_variations.py:597-639): window batches over
+    the data axis, and a table axis once the table estimate (15 bytes a
+    key) passes 4 GiB per device, or as KCFTOOLS_TABLE_AXIS says, cut to
+    a divisor of the device count. Without --memory the KMC database
+    streams straight into the table shards (KCFTOOLS_RAM_BUDGET bytes of
+    host staging, 8 GiB by default); with it, the ingest's host table is
+    re-placed shard-locally. Either is timed as the stage
+    ``mesh_place``."""
+    n_dev = len(devices)
+    est_table = kmc.total_kmers * 15
+    table_axis = 1
+    if est_table > 4 << 30:
+        table_axis = 2
+        while est_table // table_axis > 4 << 30 and table_axis < n_dev:
+            table_axis *= 2
+    env_axis = os.environ.get("KCFTOOLS_TABLE_AXIS")
+    if env_axis:
+        table_axis = min(int(env_axis), n_dev)
+    while n_dev % table_axis:
+        table_axis //= 2
+    mesh = make_mesh(data=n_dev // table_axis, table=table_axis)
+    Logger.info(
+        _CLASS,
+        f"Using {n_dev} devices: mesh data={n_dev // table_axis} "
+        f"table={table_axis}",
+    )
+    with stagetimer.stage("mesh_place"):
+        if table is None:
+            budget = int(os.environ.get("KCFTOOLS_RAM_BUDGET",
+                                        str(8 << 30)))
+            loader = ShardedTableLoader(db_prefix, mesh,
+                                        ram_budget_bytes=budget)
+            return loader.load_scorer(min_count=args.min_k_count)
+        return ShardedWindowScorer(table, mesh, min_count=args.min_k_count)
+
+
 def _run_hash_sample(args, index, gtf, k, scorer, sample, out_path):
     """One sample through the on-chip hash engine (gene/transcript
-    features): score every chromosome's features, then write the KCF as
-    the JAX package's ``_run_one_sample`` does."""
+    features, or fixed windows on the mesh): score every chromosome's
+    windows, then write the KCF as the JAX package's
+    ``_run_one_sample`` does."""
     header = KCFHeader()
     header.reference = args.reference
     header.add_command_line(_common.get_command_line())
@@ -312,8 +372,12 @@ def _run_hash_sample(args, index, gtf, k, scorer, sample, out_path):
     with stagetimer.stage("scan"):
         for name in index.get_sequence_names():
             header.add_contig(name, index.get_sequence_length(name))
-            block = _score_feature_windows(args, index, gtf, name, k,
-                                           scorer, sample)
+            if args.feature == "window":
+                block = _score_fixed_windows(args, index, name, k, scorer,
+                                             sample)
+            else:
+                block = _score_feature_windows(args, index, gtf, name, k,
+                                               scorer, sample)
             if block is not None and len(block) > 0:
                 # reference sorts each chromosome's windows by start
                 order = np.argsort(block.start, kind="stable")
@@ -327,6 +391,80 @@ def _run_hash_sample(args, index, gtf, k, scorer, sample, out_path):
             block.finalize(weights)
             writer.write_block(block)
     Logger.info(_CLASS, f"Wrote {total_windows} windows to {out_path}")
+
+
+def _score_fixed_windows(args, index, name, k, scorer, sample):
+    """One chromosome's fixed windows through the hash engine. A scorer
+    with the chunked interface (WindowScorer) gets each chromosome base
+    uploaded once, as sentinel-coded uint8 chunks whose windows are
+    gathered on the device; a mesh-sharded scorer gets padded window
+    batches (``_score_fixed_windows_batched``)."""
+    seq_len = index.get_sequence_length(name)
+    if args.step > 0:
+        starts, ends = sliding_windows(seq_len, args.window, args.step, k)
+    else:
+        starts, ends = tiling_windows(seq_len, args.window, k)
+    if len(starts) == 0:
+        return None
+    codes, valid = index.sequence_codes(name)
+    if not hasattr(scorer, "score_chunk_async"):
+        return _score_fixed_windows_batched(
+            args, name, k, scorer, sample, codes, valid, starts, ends
+        )
+    u8 = combine_u8(codes, valid)
+    C, c_step, Lp, B = _host._chunk_geometry(args.window, args.step, k)
+    win_len = (ends - starts).astype(np.int64)
+    chunk_of = starts // c_step
+    # rows: what this chromosome needs, rounded to a 128 granule
+    B = min(B, -(-int(np.bincount(chunk_of).max()) // 128) * 128)
+    handles = []
+    for c in range(0, (seq_len // c_step) + 1):
+        sel = np.flatnonzero(chunk_of == c)
+        if sel.size == 0:
+            continue
+        base = c * c_step
+        chunk = u8[base : base + C]
+        if chunk.shape[0] < C:
+            chunk = np.concatenate(
+                [chunk, np.full(C - chunk.shape[0], 4, np.uint8)]
+            )
+        cstarts = np.zeros(B, np.int64)
+        cwl = np.zeros(B, np.int64)
+        cstarts[: sel.size] = starts[sel] - base
+        cwl[: sel.size] = win_len[sel]
+        handles.append(
+            (scorer.score_chunk_async(chunk, cstarts, cwl, Lp), sel)
+        )
+    res = {}
+    for handle, sel in handles:
+        for key, v in scorer.collect(handle).items():
+            res.setdefault(key, np.zeros(len(starts), np.int64))[sel] = (
+                v[: sel.size]
+            )
+    ids = [f"{name}_{s}" for s in starts]
+    return _host._make_block(sample, name, starts, ends, ids, res, k)
+
+
+def _score_fixed_windows_batched(args, name, k, scorer, sample, codes,
+                                 valid, starts, ends):
+    """Padded window batches of about 2^22 positions for mesh-sharded
+    scorers; the scorer pads each batch to its data axis."""
+    pad_len = args.window + PAD_MARGIN
+    bsz = max(1, _host._BATCH_POSITIONS // pad_len)
+    handles = []
+    for off in range(0, len(starts), bsz):
+        bcodes, bvalid, win_len = batch_subsequences(
+            codes, valid, starts[off : off + bsz], ends[off : off + bsz],
+            pad_len,
+        )
+        handles.append(scorer.score_batch_async(bcodes, bvalid, win_len))
+    parts = {}
+    for handle in handles:
+        for key, v in scorer.collect(handle).items():
+            parts.setdefault(key, []).append(v)
+    res = {key: np.concatenate(vs) for key, vs in parts.items()}
+    ids = [f"{name}_{s}" for s in starts]
+    return _host._make_block(sample, name, starts, ends, ids, res, k)
 
 
 def _score_feature_windows(args, index, gtf, name, k, scorer, sample):

@@ -123,24 +123,25 @@ def test_port_cli_default_device_needs_cuda(tmp_path, rng):
     (["--engine", "auto"], "auto engine"),
 ])
 def test_port_cli_refuses_unported_engines(tmp_path, rng, args, what):
+    """The multi-device runs that the port once refused: the same argv
+    over 8 CPU slots (KCFTOOLS_TORCH_VIRTUAL_DEVICES=8) now runs -
+    dprefix spread over the slots, and auto switching to it - and
+    matches --engine hybrid."""
     fa, dbs, samples, extra = _fixture(tmp_path, rng, "tiling")
-    argv = _gv(fa, dbs, samples, str(tmp_path / "o.kcf"), extra, "hybrid")
+    want = str(tmp_path / "h.kcf")
+    proc = _port(_gv(fa, dbs, samples, want, extra, "hybrid"))
+    assert proc.returncode == 0, proc.stderr
+    out = str(tmp_path / "o.kcf")
+    argv = _gv(fa, dbs, samples, out, extra, "hybrid")
     argv[-2:] = args
-    # auto and dprefix on more than one GPU are the multi-GPU path: the
-    # subprocess makes torch report two (and, for dprefix, that CUDA is
-    # there, so that cuda:0 resolves)
-    env = {"KCFTOOLS_NO_DEVICE_PROBE": ""}
-    fake = "import sys, torch\ntorch.cuda.device_count = lambda: 2\n"
-    if args[1] == "dprefix":
-        fake += "torch.cuda.is_available = lambda: True\n"
-        env["KCFTOOLS_TORCH_DEVICE"] = "cuda:0"
-    proc = subprocess.run(
-        [sys.executable, "-c", fake + _RUN, *argv],
-        cwd=_REPO, env=_env(**env), capture_output=True, text=True,
-        timeout=300,
-    )
-    assert proc.returncode == 1
-    assert what in proc.stderr and "not yet ported" in proc.stderr
+    proc = _port(argv, KCFTOOLS_NO_DEVICE_PROBE="",
+                 KCFTOOLS_TORCH_DEVICE="cpu",
+                 KCFTOOLS_TORCH_VIRTUAL_DEVICES="8")
+    assert proc.returncode == 0, proc.stderr
+    assert "JAX_LOADED=False" in proc.stdout
+    with open(out) as f:
+        assert what in proc.stdout + f.read()
+    assert _strip_volatile(out) == _strip_volatile(want)
 
 
 def test_port_cli_host_plugin_without_jax(tmp_path, rng):

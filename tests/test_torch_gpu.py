@@ -203,3 +203,102 @@ def test_window_scorer_gpu_matches_cpu(cuda_device, both_strands):
     for f, want in out["cpu"].items():
         np.testing.assert_array_equal(out["cuda"][f], want, err_msg=f)
     assert out["cuda"]["count_sum"].max() >= 1 << 31
+
+
+def _cuda_slots(dev, n=4):
+    """n mesh slots on one card (a virtual mesh)."""
+    from kcftools_tpu_torch.torchinit import Slot
+
+    return [Slot(i, dev, 0) for i in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data,table", [(4, 1), (2, 2), (1, 4)])
+def test_sharded_scorer_gpu_matches_cpu(cuda_device, data, table):
+    """The mesh-sharded hash engine on 4 slots of the card against the
+    single-device scorer on the CPU."""
+    from kcftools_tpu_torch.parallel.mesh import make_mesh
+    from kcftools_tpu_torch.parallel.sharded import ShardedWindowScorer
+
+    rng = np.random.default_rng(17)
+    k = 31
+    genome, valid, _r, _i, db, dbc = _genome_case(rng, 100_000, k)
+    table_ = build_table(db, dbc, k)
+    at = rng.integers(0, 100_000 - 5000, 37)
+    bc, bv, wl = pad_batch_varlen([genome[a : a + 5000] for a in at],
+                                  [valid[a : a + 5000] for a in at], 5032)
+    want = tpl.WindowScorer(table_, torch.device("cpu")).score_batch(
+        bc, bv, wl)
+    before = tlk.table_lookup.cuda_calls
+    mesh = make_mesh(data, table, devices=_cuda_slots(cuda_device))
+    got = ShardedWindowScorer(table_, mesh).score_batch(bc, bv, wl)
+    assert tlk.table_lookup.cuda_calls == before + data * table
+    for f, w in want.items():
+        np.testing.assert_array_equal(got[f], w, err_msg=f)
+
+
+@pytest.mark.cuda
+def test_mesh_join_gpu_matches_single(cuda_device):
+    """MeshJoinScorer on a (2, 2) mesh of the card: one join launch per
+    table shard and per sample, results equal to DeviceJoinScorer."""
+    from kcftools_tpu_torch.engine.device_join import MeshJoinScorer
+    from kcftools_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(23)
+    k = 31
+    _g, _v, refk, r_idx, db, dbc = _genome_case(rng, 300_000, k)
+    starts, ends = tiling_windows(r_idx.shape[0] + k - 1, 5000, k)
+    mesh = make_mesh(2, 2, devices=_cuda_slots(cuda_device))
+    out = {}
+    for name, sc in (
+        ("single", DeviceJoinScorer(_Ref(refk), k, cuda_device)),
+        ("mesh", MeshJoinScorer(_Ref(refk), k, mesh)),
+    ):
+        sc.add_chrom("c", r_idx, starts, ends)
+        before = tpj.pjoin_join.launches_packed + tpj.pjoin_join.launches_u32
+        for key, counts in enumerate((dbc, dbc * np.uint32(300))):
+            sc.submit(key, refk, db, counts)
+        launches = (tpj.pjoin_join.launches_packed
+                    + tpj.pjoin_join.launches_u32 - before)
+        out[name] = [sc.collect(key)["c"] for key in range(2)]
+        assert launches == (2 if name == "single" else 4)
+    for got, want in zip(out["mesh"], out["single"]):
+        for f, w in want.items():
+            np.testing.assert_array_equal(got[f], w, err_msg=f)
+
+
+@pytest.mark.cuda
+def test_device_prefix_pool_gpu_matches_cpu(cuda_device, monkeypatch):
+    """dprefix over 4 slots of the card (slabs spread, then a pool of
+    slots per slab) against one CPU device."""
+    monkeypatch.setenv("KCFTOOLS_DPREFIX_SLAB", str(1 << 16))
+    rng = np.random.default_rng(29)
+    k = 31
+    _g, _v, refk, r_idx, db, dbc = _genome_case(rng, 100_000, k)
+    starts, ends = tiling_windows(r_idx.shape[0] + k - 1, 5000, k)
+    tables = [(db, dbc * np.uint32(m)) for m in (1, 3, 700)]
+    before = tdp._score_runs.cuda_calls
+    out = {}
+    for name, kw in (("cpu", {"device": torch.device("cpu")}),
+                     ("cuda", {"devices": _cuda_slots(cuda_device)})):
+        sc = tdp.DevicePrefixScorer(None, k, batch=3, **kw)
+        sc.add_chrom("c", r_idx, starts, ends)
+        for key, (d, c) in enumerate(tables):
+            sc.submit(key, refk, d, c)
+        out[name] = [sc.collect(key)["c"] for key in range(3)]
+        if name == "cuda":
+            assert len(sc.devices_used()) == 4
+        sc.close()
+    assert tdp._score_runs.cuda_calls > before
+    for got, want in zip(out["cuda"], out["cpu"]):
+        for f, w in want.items():
+            np.testing.assert_array_equal(got[f], w, err_msg=f)
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_gpu(cuda_device, monkeypatch):
+    from kcftools_tpu_torch.dryrun import dryrun_multichip
+
+    monkeypatch.setenv("KCFTOOLS_TORCH_DEVICE", "cuda:0")
+    monkeypatch.setenv("KCFTOOLS_TORCH_VIRTUAL_DEVICES", "4")
+    dryrun_multichip(4)

@@ -180,3 +180,73 @@ def test_window_scorer_matches_jax_and_oracle(rng, both_strands):
     with pytest.raises(ValueError):
         port.set_table(build_table(keys, cnt, k,
                                    both_strands=not both_strands))
+
+
+@pytest.mark.parametrize("both_strands", [True, False])
+def test_score_chunk_matches_jax(rng, both_strands):
+    """The chunked interface: windows gathered on the device from one
+    uploaded chunk (padded rows have length 0), against the JAX
+    ``_score_chunk``."""
+    k, Lp = 21, 300 + 32
+    genome = random_seq(rng, 5000, n_prob=0.01)
+    codes, valid = codes_from_str(genome)
+    db = count_db([mutate(rng, genome, snp_rate=0.02)], k,
+                  both_strands=both_strands)
+    keys = np.array([str_to_kmer(s) for s in db], np.uint64)
+    table = build_table(keys, np.array(list(db.values()), np.uint32), k,
+                        both_strands=both_strands)
+    chunk = jpl.combine_u8(codes, valid)
+    starts = np.zeros(16, np.int64)
+    win_len = np.zeros(16, np.int64)
+    starts[:12] = rng.integers(0, 5000 - 300, 12)
+    win_len[:12] = rng.integers(k - 2, 301, 12)
+    starts[11] = 5000 - 40  # a window that runs past the chunk's end
+    want = jpl._score_chunk(
+        jnp.asarray(chunk), jnp.asarray(starts, jnp.int32),
+        jnp.asarray(win_len, jnp.int32), jnp.asarray(table.tbl), Lp=Lp,
+        k=k, min_count=1, both_strands=both_strands,
+    )
+    port = tpl.WindowScorer(table, _CPU)
+    got = port.score_chunk_async(chunk, starts, win_len, Lp)
+    np.testing.assert_array_equal(got.numpy(), _np(want))
+    res = port.collect(got)
+    assert res["observed"][:12].sum() > 0 and not res["total"][12:].any()
+
+
+def test_fixed_windows_chunked_and_batched(rng, tmp_path, monkeypatch):
+    """The plugin's fixed-window hash scoring: the chunked path (one
+    WindowScorer) and the padded-batch path (a ShardedWindowScorer on a
+    (2, 2) mesh of CPU slots) give the JAX package's chunked result."""
+    from argparse import Namespace
+
+    from kcftools_tpu.io.fasta import FastaIndex
+    from kcftools_tpu.plugins import get_variations as jgv
+    from kcftools_tpu_torch.parallel.mesh import make_mesh
+    from kcftools_tpu_torch.parallel.sharded import ShardedWindowScorer
+    from kcftools_tpu_torch.plugins import get_variations as tgv
+
+    from .gen import write_fasta
+
+    monkeypatch.setenv("KCFTOOLS_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("KCFTOOLS_TORCH_VIRTUAL_DEVICES", "4")
+    k = 21
+    genome = random_seq(rng, 7000, n_prob=0.005)
+    fa = str(tmp_path / "r.fa")
+    write_fasta(fa, [("c1", genome)])
+    index = FastaIndex(fa)
+    db = count_db([mutate(rng, genome, snp_rate=0.02)], k)
+    keys = np.array([str_to_kmer(s) for s in db], np.uint64)
+    table = build_table(keys, np.array(list(db.values()), np.uint32), k)
+    for step in (0, 150):
+        args = Namespace(window=500, step=step)
+        want = jgv._score_fixed_windows(
+            args, index, "c1", k, jpl.WindowScorer(table), "s")
+        for scorer in (tpl.WindowScorer(table, _CPU),
+                       ShardedWindowScorer(table, make_mesh(2, 2))):
+            got = tgv._score_fixed_windows(args, index, "c1", k, scorer, "s")
+            np.testing.assert_array_equal(got.start, want.start)
+            for f in ("total_kmers", "eff_length", "ob", "va", "inner",
+                      "left", "right", "kmer_count"):
+                np.testing.assert_array_equal(
+                    getattr(got, f), getattr(want, f), err_msg=f)
+            assert got.window_id == want.window_id
