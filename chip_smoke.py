@@ -7,18 +7,24 @@ Phases (any failure exits non-zero):
   1. device   - the card's name, and its name and power limit as
                 nvidia-smi reports them;
   2. build    - nvcc builds the port's kernels from csrc/ (and g++ the
-                shared native host library) - timed;
+                port's native host library into kcftools_tpu_torch/_build)
+                - timed;
   3. kernels  - each kernel against its plain torch version on the
-                card, at the main path's shapes (P = 2^16 partitions,
-                Tq = Tt = 1024): outputs must be bit-identical; kernel
-                and plain times from CUDA events;
+                card, at the edge shapes (EDGE_SHAPES) and the main
+                path's (P = 2^16 partitions, Tq = Tt = 1024), on operands
+                with duplicate keys, wrapping uint32 sums and the
+                all-ones key: outputs must be bit-identical; at the main
+                shapes the kernel, plain and library (``torch.searchsorted``)
+                times from CUDA events, beside the bound (bytes over
+                HBM_BYTES_PER_S);
   4. slice    - synthesises a 40 Mbp reference in 4 chromosomes (N runs
                 sprinkled) and 3 KMC samples at 1% SNPs (the third with
                 counts > 255 up to 2^32 - 1, so both kernel variants
                 run), then runs ``getVariations -f window -w 5000
                 --engine device`` (k = 31) through the port's CLI, cold
                 and warm, with the kernel launch counters zeroed just
-                before; checks the KCF bytes against the port's
+                before each (one join launch per sample); checks the KCF
+                bytes against the port's
                 ``--engine hybrid`` (host) output, the window count and
                 that jax never loaded; prints windows/s and the
                 per-phase seconds (pack, upload, join, scan, fetch).
@@ -83,6 +89,14 @@ WINDOW_ARGS = ("-f", "window", "-w", str(WINDOW))
 GENES_PER_CHROM = 1000  # ~4,000 genes on 40 Mbp: rice's gene density
 SHORT_GENES_PER_CHROM = 2  # genes shorter than k
 MAIN_P, MAIN_TQ, MAIN_TT = 1 << 16, 1024, 1024
+# (P, Tq, Tt) beside the main shapes that reach every path of the join
+# kernel: table or query rows too wide to stage (the chunked variant, with
+# five builds and with one), widths off every multiple of 128 and of 4
+# (packed rounds Tt down to a multiple of 4), fewer partitions than the
+# persistent grid, one partition
+EDGE_SHAPES = [(3, 700, 9000), (2, 20000, 64), (5, 77, 999), (100, 256, 512),
+               (1, 1024, 1024)]
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (80 GB HBM3), NVIDIA's data sheet
 KERNELS = {
     "pjoin_packed": ("launches_packed", "kcftools_tpu/ops/pjoin.py:179"),
     "pjoin_u32": ("launches_u32", "kcftools_tpu/ops/pjoin.py:198"),
@@ -111,12 +125,16 @@ def _i32_bits(x):
 
 
 def join_operands(dev, seed, P, Tq, Tt, packed):
-    """Main-path-shaped join operands: random 64-bit keys (half of the
-    hi words have bit 31 set, as k = 32 keys do), a fifth of each
-    table tile left as padding (key 0, count 0), the all-A key 0 as a
-    real key in every seventh partition and as a query in every
-    partition, half the queries hits and half misses. Counts are bytes
-    when packed, else full-range uint32 (>255 and >= 2^31)."""
+    """Join operands at any shape: random 64-bit keys (half of the hi
+    words have bit 31 set, as k = 32 keys do), a fifth of each table
+    tile left as padding (key 0, count 0), the all-A key 0 as a real key
+    in every seventh partition and as a query in every partition, half
+    the queries hits and half misses. Beyond what real tiles hold, every
+    partition has a duplicate key pair (whose uint32 counts wrap 2^32),
+    and every third partition the all-ones key twice (the kernel's EMPTY
+    marker); both are queried in every partition. Counts are bytes when
+    packed, else full-range uint32 (>255 and >= 2^31). Needs Tq >= 3 and
+    Tt >= 7."""
     g = torch.Generator(device=dev).manual_seed(seed)
     th, tl = _rand_i32((P, Tt), g, dev), _rand_i32((P, Tt), g, dev)
     if packed:
@@ -129,6 +147,14 @@ def join_operands(dev, seed, P, Tq, Tt, packed):
     cnt[:, pad:] = 0
     th[::7, 0] = 0
     tl[::7, 0] = 0
+    th[:, 2] = th[:, 1]  # the duplicate pair
+    tl[:, 2] = tl[:, 1]
+    th[::3, 3:5] = -1  # the all-ones key, twice
+    tl[::3, 3:5] = -1
+    if not packed:
+        cnt[:, 1] = 0xFFFFFFF0
+        cnt[:, 2] = 0x20
+        cnt[::3, 3:5] = 0xFFFFFFFF
     idx = torch.randint(0, pad, (P, Tq), generator=g, device=dev)
     qh, ql = th.gather(1, idx), tl.gather(1, idx)
     miss = torch.rand((P, Tq), generator=g, device=dev) < 0.5
@@ -136,6 +162,10 @@ def join_operands(dev, seed, P, Tq, Tt, packed):
     ql = torch.where(miss, _rand_i32((P, Tq), g, dev), ql)
     qh[:, 0] = 0
     ql[:, 0] = 0
+    qh[:, 1] = th[:, 1]
+    ql[:, 1] = tl[:, 1]
+    qh[:, 2] = -1
+    ql[:, 2] = -1
     if packed:
         W = Tt // 4
         tc = _i32_bits(cnt[:, :W] | (cnt[:, W:2 * W] << 8)
@@ -143,6 +173,30 @@ def join_operands(dev, seed, P, Tq, Tt, packed):
     else:
         tc = _i32_bits(cnt)
     return [t.contiguous() for t in (qh, ql, th, tl, tc)]
+
+
+def library_join(ops, packed):
+    """The nearest library formulation of the join, as a yardstick the
+    port never calls: each table row sorted by its signed 64-bit key
+    (not timed), then, timed, a batched ``torch.searchsorted`` of the
+    queries' int64 keys, the gather and the equality mask. It returns
+    one matching slot's count, not the sum over duplicates."""
+    from kcftools_tpu_torch.ops.pjoin import unpack_planar
+
+    qh, ql, th, tl, tc = ops
+    tk = (th.long() << 32) | (tl.long() & 0xFFFFFFFF)
+    cnt = unpack_planar(tc) if packed else tc.long() & 0xFFFFFFFF
+    tk, order = tk.sort(dim=1)
+    cnt = cnt.gather(1, order)
+    qk = (qh.long() << 32) | (ql.long() & 0xFFFFFFFF)
+    last = tk.shape[1] - 1
+    del order
+
+    def run():
+        i = torch.searchsorted(tk, qk).clamp_(max=last)
+        return torch.where(tk.gather(1, i) == qk, cnt.gather(1, i), 0)
+
+    return run
 
 
 def _event_ms(fn, iters):
@@ -156,31 +210,59 @@ def _event_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def _check_exact(name, ops, packed, shape):
+    from kcftools_tpu_torch.ops.pjoin import pjoin_join, pjoin_join_ref
+
+    got = pjoin_join(*ops, packed=packed)
+    want = pjoin_join_ref(*ops, packed=packed)
+    torch.cuda.synchronize()
+    err = int(((got.long() & 0xFFFFFFFF) - (want.long() & 0xFFFFFFFF))
+              .abs().max())
+    if not torch.equal(got, want):
+        fail(f"{name} {shape}: kernel differs from the plain version "
+             f"(max abs err {err})")
+    return err, int((want != 0).sum())
+
+
 def check_kernels(dev, seed, P, Tq, Tt):
+    """Each join variant bit-exact against its plain version at the edge
+    shapes and at the main path's, then timed at the main path's: the
+    kernel, the plain version and the library yardstick, beside the
+    least time the card could take (every operand byte read once and
+    the output written once, at HBM_BYTES_PER_S)."""
     from kcftools_tpu_torch.ops.pjoin import pjoin_join, pjoin_join_ref
 
     rows = {}
     for name, packed in (("pjoin_packed", True), ("pjoin_u32", False)):
+        for shape in EDGE_SHAPES:
+            p, tq, tt = shape
+            tt -= tt % 4 if packed else 0
+            _check_exact(name, join_operands(dev, seed, p, tq, tt, packed),
+                         packed, (p, tq, tt))
         ops = join_operands(dev, seed, P, Tq, Tt, packed)
-        got = pjoin_join(*ops, packed=packed)
-        want = pjoin_join_ref(*ops, packed=packed)
-        torch.cuda.synchronize()
-        err = int(((got.long() & 0xFFFFFFFF) - (want.long() & 0xFFFFFFFF))
-                  .abs().max())
-        hits = int((want != 0).sum())
-        if not torch.equal(got, want):
-            fail(f"{name}: kernel differs from the plain version "
-                 f"(max abs err {err})")
+        err, hits = _check_exact(name, ops, packed, (P, Tq, Tt))
         if hits < P * Tq // 4:
             fail(f"{name}: only {hits} nonzero join results - bad operands")
         for _ in range(3):
             pjoin_join(*ops, packed=packed)
         ms = _event_ms(lambda: pjoin_join(*ops, packed=packed), 20)
         plain_ms = _event_ms(lambda: pjoin_join_ref(*ops, packed=packed), 1)
-        log(f"{name}: P={P} Tq={Tq} Tt={Tt} exact (max_abs_err {err}, "
-            f"{hits} nonzero); kernel {ms} ms, plain {plain_ms} ms")
-        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        del ops, got, want
+        lib = library_join(ops, packed)
+        for _ in range(2):
+            lib()
+        library_ms = _event_ms(lib, 20)
+        del lib
+        nbytes = 4 * (sum(t.numel() for t in ops) + P * Tq)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"{name}: exact at {EDGE_SHAPES} and P={P} Tq={Tq} Tt={Tt} "
+            f"(max_abs_err {err}, {hits} nonzero); kernel {ms} ms, plain "
+            f"{plain_ms} ms, library {library_ms} ms; bound {bound_ms} ms "
+            f"({nbytes} bytes), share {bound_ms / ms}")
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": "bytes",
+                      "bound_share": bound_ms / ms, "library_ms": library_ms}
+        del ops
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -204,7 +286,8 @@ def _write_fasta(path, chroms):
 def _sample_table(rng, chroms, snp_rate, n_err):
     """Sorted unique canonical k-mers of a 1%-SNP copy of the reference
     plus ``n_err`` random error k-mers, with multiplicities."""
-    from kcftools_tpu_torch._host import canonicalize, pack_kmers, sort_pairs
+    from kcftools_tpu_torch.engine.encode import canonicalize, pack_kmers
+    from kcftools_tpu_torch.native import sort_pairs
 
     parts = []
     for codes, valid in chroms.values():
@@ -223,7 +306,7 @@ def _sample_table(rng, chroms, snp_rate, n_err):
 
 
 def make_data(root, mbp, n_samples, seed):
-    from kcftools_tpu_torch._host import write_kmc_db
+    from kcftools_tpu_torch.io.kmc import write_kmc_db
 
     rng = np.random.default_rng(seed)
     L = mbp * 1_000_000 // N_CHROMS
@@ -318,23 +401,34 @@ def check_same(got_paths, want_paths, n_rows, what):
 
 
 def run_slice(root, ref, dbs, chrom_len):
-    from kcftools_tpu_torch._host import tiling_windows
+    from kcftools_tpu_torch.engine.windows import tiling_windows
     from kcftools_tpu_torch.ops.pjoin import pjoin_join
 
     n_win = sum(len(tiling_windows(L, WINDOW, K)[0]) for L in chrom_len.values())
     stage_json = os.path.join(root, "stages.json")
-    pjoin_join.launches_packed = 0
-    pjoin_join.launches_u32 = 0
-    cold_s, cold_st, _ = run_cli(ref, dbs, os.path.join(root, "dev_cold"),
-                                 "device", stage_json)
-    warm_s, warm_st, dev_kcf = run_cli(ref, dbs, os.path.join(root, "dev"),
-                                       "device", stage_json)
-    launches = {n: getattr(pjoin_join, attr) for n, (attr, _) in KERNELS.items()}
+
+    def drive(out_dir):
+        """One main-path run with the launch counts zeroed just before
+        it; (wall s, stages, KCF paths, launches of each kernel)."""
+        for attr, _ in KERNELS.values():
+            setattr(pjoin_join, attr, 0)
+        res = run_cli(ref, dbs, os.path.join(root, out_dir), "device",
+                      stage_json)
+        return (*res, {n: getattr(pjoin_join, attr)
+                       for n, (attr, _) in KERNELS.items()})
+
+    cold_s, cold_st, cold_kcf, cold_launches = drive("dev_cold")
+    warm_s, warm_st, dev_kcf, launches = drive("dev")
     host_s, _, host_kcf = run_cli(ref, dbs, os.path.join(root, "host"),
                                   "hybrid", stage_json)
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"{name} was not launched by the main path")
+    for run_launches in (cold_launches, launches):
+        for name, n in run_launches.items():
+            if n == 0:
+                fail(f"{name} was not launched by the main path")
+        if sum(run_launches.values()) != len(dbs):
+            fail(f"{run_launches} join launches for {len(dbs)} samples, "
+                 "want one per sample")
+    check_same(cold_kcf, host_kcf, n_win, "device engine, cold")
     check_same(dev_kcf, host_kcf, n_win, "device engine")
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -343,7 +437,8 @@ def run_slice(root, ref, dbs, chrom_len):
               for p in ("pack", "upload", "join", "scan", "fetch")}
     log(f"slice: {sum(chrom_len.values())} bp in {len(chrom_len)} chromosomes,"
         f" {len(dbs)} samples, {total_win} windows; KCF bytes equal the "
-        f"host engine's; jax not loaded; launches {launches}")
+        f"host engine's; jax not loaded; launches cold {cold_launches}, "
+        f"warm {launches}")
     log(f"slice: device cold {cold_s} s, warm {warm_s} s "
         f"({total_win / warm_s} windows/s); host engine {host_s} s")
     log(f"slice: warm phase seconds {json.dumps(phases)}; all stages "
@@ -422,7 +517,7 @@ def run_engines(root, ref, dbs, chrom_len, host_kcf, seed):
     """Phase 5 (see the module docstring). Returns the per-program call
     counts of each run, and per feature kind the host engine's (KCF
     paths, feature count)."""
-    from kcftools_tpu_torch._host import sliding_windows, tiling_windows
+    from kcftools_tpu_torch.engine.windows import sliding_windows, tiling_windows
 
     n_win = sum(len(tiling_windows(L, WINDOW, K)[0])
                 for L in chrom_len.values())
@@ -544,12 +639,10 @@ def _mesh_env():
 def _mesh_join(ref, dbs, env):
     """MeshJoinScorer on a (data, 2) mesh against DeviceJoinScorer for
     every sample; returns (single s, mesh s, launches per sample)."""
-    from kcftools_tpu_torch._host import (
-        FastaIndex,
-        RefKmerIndex,
-        load_sorted_cache,
-        tiling_windows,
-    )
+    from kcftools_tpu_torch.engine.refindex import RefKmerIndex
+    from kcftools_tpu_torch.engine.windows import tiling_windows
+    from kcftools_tpu_torch.io.fasta import FastaIndex
+    from kcftools_tpu_torch.io.kmc import load_sorted_cache
     from kcftools_tpu_torch.engine.device_join import (
         DeviceJoinScorer,
         MeshJoinScorer,
@@ -609,7 +702,7 @@ def run_mesh(root, ref, dbs, chrom_len, host_kcf, host_gene, smi):
     """Phase 6 (see the module docstring). ``host_gene`` is phase 5's
     (hybrid -f gene KCF paths, gene count) over root/smoke.gtf. Returns
     the call counts of each run."""
-    from kcftools_tpu_torch._host import tiling_windows
+    from kcftools_tpu_torch.engine.windows import tiling_windows
     from kcftools_tpu_torch.dryrun import dryrun_multichip
     from kcftools_tpu_torch.engine import device_prefix as tdp
 
@@ -695,7 +788,7 @@ def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke runs on a GPU")
     from kcftools_tpu_torch.ops import _kernels
-    from kcftools_tpu_torch._host import get_lib
+    from kcftools_tpu_torch.native import get_lib
 
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)

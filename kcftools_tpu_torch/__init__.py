@@ -10,11 +10,18 @@ gene|transcript --engine device``, k <= 32); over several devices the
 multi-device tier (a (data, table) mesh, the sharded hash engine and its
 streaming loader, MeshJoinScorer, dprefix's device pool, and
 torch.distributed across processes). Plain torch ops do the scans, the
-k-mer extraction and the hash lookups. It imports torch and never jax;
-the shared host tier (I/O, the native C++ library, the numpy engine
-modules, the host plugins) comes from ``kcftools_tpu`` through ``_host``.
+k-mer extraction and the hash lookups. It imports torch, never jax and
+never ``kcftools_tpu``: it carries its own copy of the JAX package's
+host tier (I/O, the native C++ library, the numpy engine modules, the
+host plugins), which imports no jax there either.
 
 Layout (mirrors kcftools_tpu):
+  io/                   host I/O: FASTA, KMC3, GTF, KCF (copies)
+  native/               the C++ host library, built by g++ at first use
+                        into _build/ (copy)
+  utils/                logging, stage timer, Java formatting (copies)
+  engine/encode*, windows, hashtable, prefix_scan, refindex, hostscan
+                        the numpy engine modules (copies)
   torchinit.py          device selection (cuda:0 unless told otherwise)
                         and the mesh slots (resolve_devices)
   ops/pjoin.py          partitioned join: host tiling + kernel wrapper
@@ -29,11 +36,16 @@ Layout (mirrors kcftools_tpu):
                         the collectives
   parallel/sharded      ShardedWindowScorer (the mesh's hash engine)
   parallel/loader       ShardedTableLoader (KMC -> table shards)
-  plugins/              getVariations with the port's device engines
+  plugins/              getVariations with the port's device engines,
+                        and the host plugins (copies)
   cli.py                ``python -m kcftools_tpu_torch.cli``
   dryrun.py             entry points (entry, dryrun_multichip)
 """
 
-from ._host import KCF_SOURCE, __version__
+# the same version and source tag as kcftools_tpu: io/kcf.py writes them
+# into every KCF header, whose bytes the port keeps equal
+__version__ = "0.8.0"
+
+KCF_SOURCE = "kcftools"
 
 __all__ = ["KCF_SOURCE", "__version__"]

@@ -1,8 +1,9 @@
 """kcftools-torch command line entry point: ``python -m kcftools_tpu_torch.cli``.
 
 The same subcommands, flags and output bytes as ``kcftools_tpu.cli``:
-the JAX package's host plugins, with the port's getVariations (whose
-``--engine device`` and ``--engine dprefix`` run on the GPU).
+the port's copies of the JAX package's host plugins, with the port's
+getVariations (whose ``--engine device`` and ``--engine dprefix`` run on
+the GPU).
 ``KCFTOOLS_PROFILE=<dir>`` records a torch.profiler trace of the command
 into ``<dir>/trace.json``. A multi-process run joins a torch.distributed
 process group first: ``KCFTOOLS_COORDINATOR=host:port
@@ -18,7 +19,8 @@ import time
 
 import torch
 
-from ._host import KcfError, Logger, __version__
+from . import __version__
+from .utils.logger import KcfError, Logger
 
 
 def build_parser():

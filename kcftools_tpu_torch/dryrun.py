@@ -25,16 +25,11 @@ import tempfile
 import numpy as np
 import torch
 
-from ._host import (
-    PAD_MARGIN,
-    build_table,
-    canonicalize,
-    chromosome_stats_indirect,
-    pack_kmers,
-    tiling_windows,
-    window_stats,
-    write_kmc_db,
-)
+from .engine.encode import canonicalize, pack_kmers
+from .engine.hashtable import build_table
+from .engine.prefix_scan import chromosome_stats_indirect, window_stats
+from .engine.windows import PAD_MARGIN, tiling_windows
+from .io.kmc import write_kmc_db
 from .torchinit import resolve_device, resolve_devices
 
 _FIELDS = ("observed", "variations", "inner", "left", "right", "count_sum")

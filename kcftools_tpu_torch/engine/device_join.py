@@ -43,7 +43,9 @@ import os
 import numpy as np
 import torch
 
-from .._host import Logger, get_lib, split_hi_lo
+from ..native import get_lib
+from ..utils.logger import Logger
+from .encode import split_hi_lo
 from ..ops.pjoin import (
     _round_up,
     as_i32,

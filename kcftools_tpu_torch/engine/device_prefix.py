@@ -45,15 +45,15 @@ import os
 import numpy as np
 import torch
 
-from .._host import (
+from ..native import (
     _uniform_window_map,
     bits_to_runs,
     build_ordmap,
     merge_counts_u8,
     ordpack,
     pack_posbits,
-    stagetimer,
 )
+from ..utils import stagetimer
 from ..torchinit import Slot, process_index, sync_devices
 
 _POS_BUCKET = 1 << 20  # slab position padding granularity

@@ -28,7 +28,7 @@ this engine is parallel/sharded.py.
 import numpy as np
 import torch
 
-from .._host import PAD_MARGIN
+from .windows import PAD_MARGIN
 from ..ops.kmerize import assemble_kmers, canonical_select, rolling_pack_u32
 from ..ops.lookup import table_lookup
 

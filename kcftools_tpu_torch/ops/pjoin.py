@@ -33,7 +33,10 @@ database), which the JAX function sends one past the last partition.
 import numpy as np
 import torch
 
-from .._host import Logger, bucket_hashes_np, sort_pairs, split_hi_lo
+from ..engine.encode import split_hi_lo
+from ..engine.hashtable import bucket_hashes_np
+from ..native import sort_pairs
+from ..utils.logger import Logger
 
 _CLASS = "PJoin"
 

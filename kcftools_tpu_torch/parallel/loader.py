@@ -24,13 +24,10 @@ import threading
 import numpy as np
 import torch
 
-from .._host import (
-    KMCReader,
-    Logger,
-    build_fixed,
-    route_shard,
-    suggest_buckets,
-)
+from ..engine.hashtable import build_fixed, suggest_buckets
+from ..io.kmc import KMCReader
+from ..native import route_shard
+from ..utils.logger import Logger
 from ..torchinit import process_index
 from .sharded import ShardedTable, ShardedWindowScorer
 

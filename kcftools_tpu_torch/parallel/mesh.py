@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .._host import Logger
+from ..utils.logger import Logger
 from ..torchinit import (
     local_devices,
     process_count,

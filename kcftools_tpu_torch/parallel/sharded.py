@@ -19,7 +19,7 @@ host before ``collect``.
 import numpy as np
 import torch
 
-from .._host import build_sharded_hilo
+from ..engine.hashtable import build_sharded_hilo
 from ..engine.pipeline import _score_u8_batch, _unstack, combine_u8
 from ..ops.lookup import table_lookup
 from .mesh import all_reduce_sum

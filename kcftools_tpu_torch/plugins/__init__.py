@@ -1,8 +1,35 @@
-"""Subcommands: the JAX package's host plugins with the port's
-getVariations in place of the JAX one (same order as
-kcftools_tpu.plugins)."""
+"""Subcommands, in the order of kcftools_tpu.plugins: the host plugins
+are copies of the JAX package's, getVariations is the port's own (its
+device engines on torch)."""
 
-from .._host import HOST_PLUGINS, get_variations as _host_gv
-from . import get_variations
+from . import (
+    get_variations,
+    cohort,
+    find_ibs,
+    split_kcf,
+    get_attributes,
+    kcf2tsv,
+    increase_window,
+    kcf2plink,
+    score_recalc,
+    kcf2gt,
+    compare_ibs,
+    kcf2matrix,
+    count,
+)
 
-PLUGINS = [get_variations if p is _host_gv else p for p in HOST_PLUGINS]
+PLUGINS = [
+    get_variations,
+    cohort,
+    find_ibs,
+    split_kcf,
+    get_attributes,
+    kcf2tsv,
+    increase_window,
+    kcf2plink,
+    score_recalc,
+    kcf2gt,
+    compare_ibs,
+    kcf2matrix,
+    count,
+]

@@ -164,6 +164,7 @@ def test_port_import_keeps_jax_engine_importable():
         "import kcftools_tpu_torch.cli\n"
         "from kcftools_tpu_torch.engine import device_join\n"
         "assert 'jax' not in sys.modules\n"
+        "assert 'kcftools_tpu' not in sys.modules\n"
         "from kcftools_tpu.engine import WindowScorer, pack_kmers\n"
         "from kcftools_tpu.engine.device_join import DeviceJoinScorer\n"
         "assert 'jax' in sys.modules\n"

@@ -36,7 +36,8 @@ _WORKER = r'''
 import json, sys
 coord, rank, db_prefix, batch_npz, out_path = sys.argv[1:6]
 import numpy as np, torch
-from kcftools_tpu_torch._host import canonicalize, pack_kmers, tiling_windows
+from kcftools_tpu_torch.engine.encode import canonicalize, pack_kmers
+from kcftools_tpu_torch.engine.windows import tiling_windows
 from kcftools_tpu_torch.engine.device_join import (
     DeviceJoinScorer, MeshJoinScorer)
 from kcftools_tpu_torch.parallel.loader import ShardedTableLoader

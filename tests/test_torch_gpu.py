@@ -14,18 +14,16 @@ import numpy as np
 import pytest
 import torch
 
-from kcftools_tpu_torch._host import (
-    build_table,
-    canonicalize,
-    pack_kmers,
-    pad_batch_varlen,
-    tiling_windows,
-)
+from kcftools_tpu_torch.engine.encode import canonicalize, pack_kmers
+from kcftools_tpu_torch.engine.hashtable import build_table
+from kcftools_tpu_torch.engine.windows import pad_batch_varlen, tiling_windows
 from kcftools_tpu_torch.engine import device_prefix as tdp
 from kcftools_tpu_torch.engine import pipeline as tpl
 from kcftools_tpu_torch.engine.device_join import DeviceJoinScorer
 from kcftools_tpu_torch.ops import lookup as tlk
 from kcftools_tpu_torch.ops import pjoin as tpj
+
+from .torch_join_cases import EDGE_SHAPES, hard_join_operands, layout_width
 
 _TOP32 = np.uint64(0xFFFFFFFF00000000)  # k=32 T^16A^16
 
@@ -68,8 +66,9 @@ def test_pjoin_kernel_matches_ref(cuda_device, packed):
 
 @pytest.mark.cuda
 def test_pjoin_kernel_wide_table_chunks(cuda_device):
-    """Tt above the kernel's shared-memory chunk (1024 slots): the
-    partition's table is staged in several chunks."""
+    """Tt = 2560: the rows and their hash table do not fit the staged
+    variant's shared memory, so the chunked variant builds each
+    partition's table twice (2,048 keys, then 512)."""
     rng = np.random.default_rng(3)
     P, Tq, Tt = 8, 640, 2560
     th = rng.integers(0, 1 << 32, (P, Tt), dtype=np.uint64).astype(np.uint32)
@@ -82,6 +81,42 @@ def test_pjoin_kernel_wide_table_chunks(cuda_device):
         ops = [tpj.as_i32(a).to(cuda_device) for a in (qh, ql, th, tl, cnt)]
         got = tpj.pjoin_join(*ops, packed=packed)
         assert torch.equal(got, tpj.pjoin_join_ref(*ops, packed=packed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["u32", "packed"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in EDGE_SHAPES])
+def test_pjoin_kernel_holds_the_contract(cuda_device, shape, packed):
+    """Duplicate keys that sum, uint32 sums that wrap, the all-ones key
+    (the kernel's EMPTY marker) as a table key and as a query, unsorted
+    rows, every variant and width: bit-exact against the plain join."""
+    P, Tq, Tt = shape
+    Tt = layout_width(Tt, packed)
+    arrs = hard_join_operands(P + Tt, P, Tq, Tt, packed)
+    ops = [tpj.as_i32(a).to(cuda_device) for a in arrs]
+    got = tpj.pjoin_join(*ops, packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tpj.pjoin_join_ref(*ops, packed=packed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["u32", "packed"])
+def test_pjoin_kernel_unaligned_operands(cuda_device, packed):
+    """Contiguous operands that start 4 bytes past an aligned address take
+    the kernel's 4-byte copies."""
+    P, Tq, Tt = 37, 256, 512
+    arrs = hard_join_operands(7, P, Tq, Tt, packed)
+    ops = []
+    for a in arrs:
+        buf = torch.empty(a.size + 1, dtype=torch.int32, device=cuda_device)
+        view = buf[1:].view(a.shape)
+        view.copy_(tpj.as_i32(a))
+        assert view.data_ptr() % 16 != 0
+        ops.append(view)
+    got = tpj.pjoin_join(*ops, packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tpj.pjoin_join_ref(*ops, packed=packed))
 
 
 class _Ref:
