@@ -6,25 +6,32 @@
 Phases (any failure exits non-zero):
   1. device   - the card's name, and its name and power limit as
                 nvidia-smi reports them;
-  2. build    - nvcc builds the port's kernels from csrc/ (and g++ the
-                port's native host library into kcftools_tpu_torch/_build)
-                - timed;
+  2. build    - nvcc builds the port's kernels from csrc/ (pjoin.cu and
+                gapscan.cu, both builds at once; their ptxas registers and
+                spills are printed), and g++ the port's native host library
+                into kcftools_tpu_torch/_build - timed;
   3. kernels  - each kernel against its plain torch version on the
-                card, at the edge shapes (EDGE_SHAPES) and the main
-                path's (P = 2^16 partitions, Tq = Tt = 1024), on operands
-                with duplicate keys, wrapping uint32 sums and the
-                all-ones key: outputs must be bit-identical; at the main
-                shapes the kernel, plain and library (``torch.searchsorted``)
-                times from CUDA events, beside the bound (bytes over
-                HBM_BYTES_PER_S);
+                card. The join at the edge shapes (EDGE_SHAPES) and the
+                main path's (P = 2^16 partitions, Tq = Tt = 1024), on
+                operands with duplicate keys, wrapping uint32 sums and the
+                all-ones key; the window scan in both modes on the edge
+                cases of tests/torch_gapscan_cases.py and at the main
+                shapes (the JOIN mode over one 2^24-position slab, the
+                ROWS mode over 3 rows of the dprefix slab, SCAN_ROWS_N
+                positions; 4,970-position tiling windows). Outputs must be
+                bit-identical; at the main shapes the kernel, plain and
+                library (``torch.searchsorted`` for the join; none for
+                the scan) times from CUDA events, beside the bound (bytes
+                over HBM_BYTES_PER_S);
   4. slice    - synthesises a 40 Mbp reference in 4 chromosomes (N runs
                 sprinkled) and 3 KMC samples at 1% SNPs (the third with
                 counts > 255 up to 2^32 - 1, so both kernel variants
                 run), then runs ``getVariations -f window -w 5000
                 --engine device`` (k = 31) through the port's CLI, cold
                 and warm, with the kernel launch counters zeroed just
-                before each (one join launch per sample); checks the KCF
-                bytes against the port's
+                before each (one join launch per sample, one scan launch
+                per slab and sample); checks the KCF bytes against the
+                port's
                 ``--engine hybrid`` (host) output, the window count and
                 that jax never loaded; prints windows/s and the
                 per-phase seconds (pack, upload, join, scan, fetch).
@@ -43,7 +50,9 @@ Phases (any failure exits non-zero):
                 ``--engine dprefix`` over a synthetic GTF (~4,000 genes of
                 1-10 kb, 1-3 transcripts of 2-6 exons, both strands, a few
                 genes shorter than k). Call counters, zeroed before each
-                run, show that each program ran on the card; prints
+                run, show that each program ran on the card, and the
+                scan kernel's launch count that each dprefix program
+                call launched it once (all rows of a group); prints
                 windows/s per engine and the dprefix_* stage seconds.
   6. mesh     - the multi-device tier on the visible GPUs, or, with one
                 card, on a virtual mesh of 4 slots that all run on
@@ -57,7 +66,8 @@ Phases (any failure exits non-zero):
                 ``--engine hybrid`` bytes. Then ``MeshJoinScorer`` on a
                 (2, 2) mesh for the three samples against
                 ``DeviceJoinScorer`` (pjoin launches rising by the table
-                axis per sample) and ``dryrun_multichip(4)``. Prints each
+                axis per sample, scan launches by its slabs) and
+                ``dryrun_multichip(4)``. Prints each
                 run's wall time and windows/s under the card's name and
                 power limit.
 
@@ -97,10 +107,38 @@ MAIN_P, MAIN_TQ, MAIN_TT = 1 << 16, 1024, 1024
 EDGE_SHAPES = [(3, 700, 9000), (2, 20000, 64), (5, 77, 999), (100, 256, 512),
                (1, 1024, 1024)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (80 GB HBM3), NVIDIA's data sheet
+DJOIN_SLAB = 1 << 24  # the device join's default slab (positions)
+SCAN_WIN = 5000 - K + 1  # k-mer positions of a -w 5000 window
+SCAN_ROWS_N = 39 << 20  # the dprefix slab of the 40 Mbp slice (pos_pad)
+# name -> (wrapper, its launch counter, source, what it replaces)
 KERNELS = {
-    "pjoin_packed": ("launches_packed", "kcftools_tpu/ops/pjoin.py:179"),
-    "pjoin_u32": ("launches_u32", "kcftools_tpu/ops/pjoin.py:198"),
+    "pjoin_packed": ("pjoin_join", "launches_packed", "csrc/pjoin.cu",
+                     "kcftools_tpu/ops/pjoin.py:179"),
+    "pjoin_u32": ("pjoin_join", "launches_u32", "csrc/pjoin.cu",
+                  "kcftools_tpu/ops/pjoin.py:198"),
+    "gapscan_join": ("slab_scan_join", "launches", "csrc/gapscan.cu",
+                     "kcftools_tpu/engine/device_join.py:58"),
+    "gapscan_rows": ("rows_scan", "launches", "csrc/gapscan.cu",
+                     "kcftools_tpu/engine/device_prefix.py:105"),
 }
+MAIN_PATH = ("pjoin_packed", "pjoin_u32", "gapscan_join")  # phase 4
+
+
+def _wrapper(name):
+    from kcftools_tpu_torch.ops import gapscan, pjoin
+
+    fn = KERNELS[name][0]
+    return getattr(pjoin if fn == "pjoin_join" else gapscan, fn)
+
+
+def zero_launches(names):
+    for name in names:
+        setattr(_wrapper(name), KERNELS[name][1], 0)
+
+
+def read_launches(names):
+    return {name: getattr(_wrapper(name), KERNELS[name][1])
+            for name in names}
 
 
 def log(msg):
@@ -266,6 +304,150 @@ def check_kernels(dev, seed, P, Tq, Tt):
     return rows
 
 
+# -- phase 3: the window scan -------------------------------------------
+
+def _on(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+def _scan_valid(g, n, dev):
+    """Valid positions: scattered invalid ones and an N run of 4,000
+    positions every 250 kb."""
+    valid = torch.rand(n, generator=g, device=dev) > 0.002
+    for a in torch.randint(0, n - 4000, (n // 250_000,), generator=g,
+                           device=dev).tolist():
+        valid[a : a + 4000] = False
+    return valid
+
+
+def _snp_presence(g, rows, n, valid, dev):
+    """(rows, n) presence as a sample at 1% SNPs shows it: a position is
+    absent where one of the K positions up to it holds a SNP."""
+    snp = (torch.rand((rows, n), generator=g, device=dev) < 0.01).int()
+    cs = torch.cumsum(snp, 1, dtype=torch.int32)
+    cs[:, K:] -= cs[:, :-K].clone()
+    return (cs == 0) & valid
+
+
+def _tiling(n, dev):
+    """SCAN_WIN-position tiling windows over n positions, padded with
+    [0, 0] entries to a multiple of 1,024 (the layout's window bucket)."""
+    ws = torch.arange(0, n - SCAN_WIN + 1, SCAN_WIN, device=dev)
+    wh = ws + SCAN_WIN - 1
+    pad = torch.zeros(-ws.numel() % 1024, dtype=torch.int64, device=dev)
+    return torch.cat([ws, pad]), torch.cat([wh, pad])
+
+
+def scan_join_operands(dev, seed, min_count):
+    """The JOIN mode at the main path's shapes: one DJOIN_SLAB-position
+    slab whose positions hold distinct slots of MAIN_P * MAIN_TQ routed
+    counts (0 at invalid positions), present counts in [min_count, 255]
+    and every thousandth at or above 2^31, absent ones below min_count.
+    Returns (args, bytes the scan must move)."""
+    from kcftools_tpu_torch.engine.device_prefix import _pack_bits
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = DJOIN_SLAB
+    valid = _scan_valid(g, n, dev)
+    pres = _snp_presence(g, 1, n, valid, dev)[0]
+    n_routed = MAIN_P * MAIN_TQ
+    slots = torch.randperm(n_routed, generator=g, device=dev)[:n]
+    cnt = torch.randint(min_count, 256, (n,), generator=g, device=dev)
+    cnt[::1000] = torch.randint(1 << 31, 1 << 32, cnt[::1000].shape,
+                                generator=g, device=dev)
+    low = torch.randint(0, min_count, (n,), generator=g, device=dev)
+    routed = torch.zeros(n_routed, dtype=torch.int64, device=dev)
+    routed[slots] = torch.where(pres, cnt, low)
+    slot_map = torch.where(valid, slots, 0).to(torch.int32)
+    ws, wh = _tiling(n, dev)
+    args = [_i32_bits(routed), slot_map, _pack_bits(valid[None])[0], ws, wh]
+    nbytes = (4 * n + 4 * int(valid.sum()) + n // 8
+              + (16 + 48) * ws.numel())
+    return args, nbytes
+
+
+def scan_rows_operands(dev, seed, rows):
+    """The ROWS mode at the dprefix slab of the slice: ``rows`` presence
+    bitmaps of SCAN_ROWS_N positions. Returns (args, bytes to move)."""
+    from kcftools_tpu_torch.engine.device_prefix import _pack_bits
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = SCAN_ROWS_N
+    valid = _scan_valid(g, n, dev)
+    pres = _pack_bits(_snp_presence(g, rows, n, valid, dev))
+    ws, wh = _tiling(n, dev)
+    args = [pres, _pack_bits(valid[None])[0], ws, wh]
+    nbytes = (rows + 1) * n // 8 + (16 + 40 * rows) * ws.numel()
+    return args, nbytes
+
+
+def _scan_exact(name, fn, ref, args, kw, what):
+    got = fn(*args, **kw)
+    want = ref(*args, **kw)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        fail(f"{name} {what}: kernel differs from the plain version "
+             f"(max abs err {err})")
+    return err
+
+
+def check_scan(dev, seed):
+    """The scan kernel in both modes bit-exact against its plain version
+    on the edge cases of tests/torch_gapscan_cases.py and at the main
+    shapes, then timed there: kernel, plain version and the bound (each
+    input byte read once, each output written once, at
+    HBM_BYTES_PER_S). No single PyTorch call computes the scan, so
+    library_ms is null."""
+    from kcftools_tpu_torch.ops import gapscan
+    from tests.torch_gapscan_cases import bits, join_case, rows_case
+
+    modes = {
+        "gapscan_join": (gapscan.slab_scan_join, gapscan.slab_scan_join_ref),
+        "gapscan_rows": (gapscan.rows_scan, gapscan.rows_scan_ref),
+    }
+    n_edge = 0
+    for mc in (1, 3):
+        for case in (seed, seed + 1):
+            routed, slot_map, valid, ws, wh = join_case(case, mc,
+                                                        inverted=True)
+            args = _on(dev, routed.view(np.int32), slot_map, bits(valid),
+                       ws, wh)
+            _scan_exact("gapscan_join", *modes["gapscan_join"], args,
+                        {"k": K, "min_count": mc}, f"edge case {case}")
+            n_edge += 1
+    for k in (17, 31, 45):
+        pr, valid, ws, wh = rows_case(seed + k, k, inverted=True)
+        _scan_exact("gapscan_rows", *modes["gapscan_rows"],
+                    _on(dev, bits(pr), bits(valid), ws, wh), {"k": k},
+                    f"edge case k={k}")
+        n_edge += 1
+    rows = {}
+    main = {
+        "gapscan_join": (*scan_join_operands(dev, seed, 3),
+                         {"k": K, "min_count": 3}),
+        "gapscan_rows": (*scan_rows_operands(dev, seed, 3), {"k": K}),
+    }
+    for name, (args, nbytes, kw) in main.items():
+        fn, ref = modes[name]
+        shape = (f"n={8 * args[-3].numel()} rows="
+                 f"{args[0].shape[0] if name == 'gapscan_rows' else 1} "
+                 f"windows={args[-1].numel()}")
+        err = _scan_exact(name, fn, ref, args, kw, shape)
+        for _ in range(3):
+            fn(*args, **kw)
+        ms = _event_ms(lambda: fn(*args, **kw), 20)
+        plain_ms = _event_ms(lambda: ref(*args, **kw), 1)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"{name}: exact on {n_edge} edge cases and at {shape} (max_abs_err"
+            f" {err}); kernel {ms} ms, plain {plain_ms} ms; bound {bound_ms} "
+            f"ms ({nbytes} bytes), share {bound_ms / ms}")
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": "bytes",
+                      "bound_share": bound_ms / ms, "library_ms": None}
+    return rows
+
+
 # -- phase 4: synthetic data --------------------------------------------
 
 def _write_fasta(path, chroms):
@@ -400,22 +582,34 @@ def check_same(got_paths, want_paths, n_rows, what):
             fail(f"{what}: {got} has {len(rows)} windows, expected {n_rows}")
 
 
+def djoin_layout(chrom_len):
+    """(slabs, positions, windows) of the device join's slab layout of
+    the slice's tiling windows."""
+    from kcftools_tpu_torch.engine.device_prefix import _Layout
+    from kcftools_tpu_torch.engine.windows import tiling_windows
+
+    lay = _Layout(K, DJOIN_SLAB)
+    for name, L in chrom_len.items():
+        lay.add_chrom(name, np.zeros(L - K + 1, np.int32),
+                      *tiling_windows(L, WINDOW, K))
+    lay.finalize()
+    return len(lay.slabs), lay.pos_pad, lay.win_pad
+
+
 def run_slice(root, ref, dbs, chrom_len):
     from kcftools_tpu_torch.engine.windows import tiling_windows
-    from kcftools_tpu_torch.ops.pjoin import pjoin_join
 
     n_win = sum(len(tiling_windows(L, WINDOW, K)[0]) for L in chrom_len.values())
+    n_slabs, pos_pad, win_pad = djoin_layout(chrom_len)
     stage_json = os.path.join(root, "stages.json")
 
     def drive(out_dir):
         """One main-path run with the launch counts zeroed just before
         it; (wall s, stages, KCF paths, launches of each kernel)."""
-        for attr, _ in KERNELS.values():
-            setattr(pjoin_join, attr, 0)
+        zero_launches(MAIN_PATH)
         res = run_cli(ref, dbs, os.path.join(root, out_dir), "device",
                       stage_json)
-        return (*res, {n: getattr(pjoin_join, attr)
-                       for n, (attr, _) in KERNELS.items()})
+        return (*res, read_launches(MAIN_PATH))
 
     cold_s, cold_st, cold_kcf, cold_launches = drive("dev_cold")
     warm_s, warm_st, dev_kcf, launches = drive("dev")
@@ -425,9 +619,13 @@ def run_slice(root, ref, dbs, chrom_len):
         for name, n in run_launches.items():
             if n == 0:
                 fail(f"{name} was not launched by the main path")
-        if sum(run_launches.values()) != len(dbs):
+        if run_launches["pjoin_packed"] + run_launches["pjoin_u32"] != len(dbs):
             fail(f"{run_launches} join launches for {len(dbs)} samples, "
                  "want one per sample")
+        if run_launches["gapscan_join"] != n_slabs * len(dbs):
+            fail(f"{run_launches['gapscan_join']} scan launches for "
+                 f"{len(dbs)} samples of {n_slabs} slabs, want one per slab "
+                 "and sample")
     check_same(cold_kcf, host_kcf, n_win, "device engine, cold")
     check_same(dev_kcf, host_kcf, n_win, "device engine")
     if "jax" in sys.modules:
@@ -436,7 +634,8 @@ def run_slice(root, ref, dbs, chrom_len):
     phases = {p: warm_st.get(f"djoin_{p}", 0.0)
               for p in ("pack", "upload", "join", "scan", "fetch")}
     log(f"slice: {sum(chrom_len.values())} bp in {len(chrom_len)} chromosomes,"
-        f" {len(dbs)} samples, {total_win} windows; KCF bytes equal the "
+        f" {len(dbs)} samples, {total_win} windows; {n_slabs} slabs of "
+        f"{pos_pad} positions and {win_pad} windows; KCF bytes equal the "
         f"host engine's; jax not loaded; launches cold {cold_launches}, "
         f"warm {launches}")
     log(f"slice: device cold {cold_s} s, warm {warm_s} s "
@@ -498,19 +697,34 @@ def _calls():
     return (tdp._score_runs, tdp._score_batch, table_lookup)
 
 
+_SCANS = ("gapscan_join", "gapscan_rows")
+
+
 def _zero_calls():
     for fn in _calls():
         fn.cuda_calls = 0
+    zero_launches(_SCANS)
 
 
 def _read_calls():
-    return dict(zip(("score_runs", "score_batch", "table_lookup"),
-                    (fn.cuda_calls for fn in _calls())))
+    calls = dict(zip(("score_runs", "score_batch", "table_lookup"),
+                     (fn.cuda_calls for fn in _calls())))
+    calls.update(read_launches(_SCANS))
+    return calls
 
 
 def _need(calls, name, what):
     if calls[name] == 0:
         fail(f"{what}: {name} did not run on the card ({calls})")
+
+
+def _need_scan(calls, what):
+    """A dprefix run: every program call launched the scan kernel once,
+    for all the rows of its group."""
+    programs = calls["score_runs"] + calls["score_batch"]
+    if programs == 0 or calls["gapscan_rows"] != programs:
+        fail(f"{what}: {calls['gapscan_rows']} scan launches for {programs} "
+             f"dprefix program calls on the card ({calls})")
 
 
 def run_engines(root, ref, dbs, chrom_len, host_kcf, seed):
@@ -534,11 +748,13 @@ def run_engines(root, ref, dbs, chrom_len, host_kcf, seed):
     # window tiling, all samples: the run program
     cold_s, cold_st, cold_kcf = drive("dprefix_cold", dbs, "dprefix")
     _need(out["dprefix_cold"], "score_runs", "dprefix window")
+    _need_scan(out["dprefix_cold"], "dprefix window, first run")
     check_same(cold_kcf, host_kcf, n_win, "dprefix window, first run")
     torch.cuda.reset_peak_memory_stats()
     warm_s, warm_st, dp_kcf = drive("dprefix", dbs, "dprefix")
     peak = torch.cuda.max_memory_allocated()
     _need(out["dprefix"], "score_runs", "dprefix window")
+    _need_scan(out["dprefix"], "dprefix window")
     check_same(dp_kcf, host_kcf, n_win, "dprefix window")
     total = n_win * len(dbs)
     log(f"engines: dprefix window KCF bytes equal the host engine's; "
@@ -557,6 +773,7 @@ def run_engines(root, ref, dbs, chrom_len, host_kcf, seed):
                                 args=slide,
                                 env={"KCFTOOLS_DPREFIX_UPLINK": "bitmap"})
     _need(out["dprefix_slide"], "score_batch", "dprefix sliding")
+    _need_scan(out["dprefix_slide"], "dprefix sliding")
     n_slide = sum(len(sliding_windows(L, WINDOW, 2500, K)[0])
                   for L in chrom_len.values())
     check_same(sl_kcf, hs_kcf, n_slide, "dprefix sliding")
@@ -580,6 +797,7 @@ def run_engines(root, ref, dbs, chrom_len, host_kcf, seed):
                                           for e in (".kmc_pre", ".kmc_suf")):
         fail(f"the streamed run wrote beside its database: {os.listdir(sdir)}")
     _need(out["dprefix_streamed"], "score_runs", "dprefix streamed")
+    _need_scan(out["dprefix_streamed"], "dprefix streamed")
     check_same(st_kcf, host_kcf[:1], n_win, "dprefix streamed")
     log(f"engines: dprefix streamed ingest {st_s} s; KCF bytes equal; "
         f"stages {json.dumps(st_st)}")
@@ -601,8 +819,8 @@ def run_engines(root, ref, dbs, chrom_len, host_kcf, seed):
             calls = out[f"{engine}_{feature}"]
             if program:
                 _need(calls, program, f"{engine} {feature}")
-            elif calls["score_runs"] + calls["score_batch"] == 0:
-                fail(f"dprefix {feature}: no scan ran on the card ({calls})")
+            else:
+                _need_scan(calls, f"dprefix {feature}")
             check_same(e_kcf, h_kcf, n_feat[feature], f"{engine} {feature}")
             times[engine] = e_s
             log(f"engines: -f {feature} --engine {engine}: KCF bytes equal "
@@ -647,6 +865,7 @@ def _mesh_join(ref, dbs, env):
         DeviceJoinScorer,
         MeshJoinScorer,
     )
+    from kcftools_tpu_torch.ops.gapscan import slab_scan_join
     from kcftools_tpu_torch.ops.pjoin import pjoin_join
     from kcftools_tpu_torch.parallel.mesh import make_mesh
     from kcftools_tpu_torch.torchinit import resolve_devices
@@ -674,12 +893,17 @@ def _mesh_join(ref, dbs, env):
                                           WINDOW, K)
             sc.add_chrom(chrom, refidx.chrom_r_idx[chrom], starts, ends)
         before = pjoin_join.launches_packed + pjoin_join.launches_u32
+        scans = slab_scan_join.launches
         t0 = time.perf_counter()
         for key, (keys, counts) in enumerate(tables):
             sc.submit(key, refidx.kmers, keys, counts)
         res[name] = [sc.collect(key) for key in range(len(tables))]
         torch.cuda.synchronize()
         secs[name] = time.perf_counter() - t0
+        scans = slab_scan_join.launches - scans
+        if scans != len(sc._layout.slabs) * len(tables):
+            fail(f"{name} join: {scans} scan launches for {len(tables)} "
+                 f"samples of {len(sc._layout.slabs)} slabs, want one each")
         if name == "mesh":
             launches = (pjoin_join.launches_packed + pjoin_join.launches_u32
                         - before)
@@ -733,6 +957,7 @@ def run_mesh(root, ref, dbs, chrom_len, host_kcf, host_gene, smi):
     finally:
         tdp.DevicePrefixScorer._build_statics = build
     _need(out["mesh_auto"], "score_runs", "auto on the mesh")
+    _need_scan(out["mesh_auto"], "auto on the mesh")
     if not spread or min(spread) < 2:
         fail(f"auto: dprefix slabs on {spread} slot(s), want > 1")
     check_same(a_kcf, host_kcf, n_win, "auto on the mesh")
@@ -801,12 +1026,14 @@ def main():
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    _kernels.load("pjoin")
-    info = _kernels.build_info["pjoin"]
-    log(f"build: csrc/pjoin.cu in {info['seconds']} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    sources = sorted({os.path.basename(v[2])[:-3] for v in KERNELS.values()})
+    _kernels.load_all(sources)  # one nvcc a source, all at once
+    for src in sources:
+        info = _kernels.build_info[src]
+        log(f"build: csrc/{src}.cu in {info['seconds']} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas: {line.strip()}")
     t1 = time.perf_counter()
     native = get_lib() is not None
     log(f"build: native host library {'loaded' if native else 'MISSING'} "
@@ -815,6 +1042,7 @@ def main():
         fail("the native host library did not build")
 
     rows = check_kernels(dev, args.seed, MAIN_P, MAIN_TQ, MAIN_TT)
+    rows.update(check_scan(dev, args.seed))
 
     root = tempfile.mkdtemp(prefix="kcf_smoke_")
     try:
@@ -823,8 +1051,10 @@ def main():
         log(f"data: {args.mbp} Mbp reference, {len(dbs)} samples in "
             f"{time.perf_counter() - t0} s")
         launches, host_kcf = run_slice(root, ref, dbs, chrom_len)
-        _calls5, feature_kcf = run_engines(root, ref, dbs, chrom_len,
-                                           host_kcf, args.seed)
+        calls5, feature_kcf = run_engines(root, ref, dbs, chrom_len,
+                                          host_kcf, args.seed)
+        # the ROWS mode's path is the dprefix engine's warm window run
+        launches["gapscan_rows"] = calls5["dprefix"]["gapscan_rows"]
         run_mesh(root, ref, dbs, chrom_len, host_kcf, feature_kcf["gene"],
                  smi)
     finally:
@@ -832,9 +1062,9 @@ def main():
 
     record = {"kernels": [
         {"name": name, "route": "cuda",
-         "source": "kcftools_tpu_torch/csrc/pjoin.cu", "replaces": where,
+         "source": f"kcftools_tpu_torch/{source}", "replaces": where,
          "launches": launches[name], **rows[name]}
-        for name, (_attr, where) in KERNELS.items()
+        for name, (_fn, _attr, source, where) in KERNELS.items()
     ]}
     print(smi, flush=True)
     print(json.dumps(record), flush=True)

@@ -13,17 +13,18 @@ engine behind ``getVariations --engine device`` at k <= 32.
       [hi | lo | counts] buffer by the shared native packer (counts
       byte-packed 4 per word when all are <= 255);
     - ONE host-to-device copy of that buffer, ONE ``pjoin_join`` launch;
-    - per slab, in a Python loop: gather through the slot map, presence
-      test, the gap-run prefix scan (device_prefix._scan_core) and the
-      count sums, into one (S, 6, win_pad) int64 device tensor;
+    - per slab, in a Python loop, ONE ``slab_scan_join`` launch
+      (ops/gapscan.py, the kernel csrc/gapscan.cu): gather through the
+      slot map, presence test, the gap-run statistics and the count
+      sums, into one (S, 6, win_pad) int64 device tensor;
     - ``collect`` makes the one device-to-host copy.
 
 Dropped from the JAX engine because they were TPU-only: the fused and
 split per-sample programs (``_FUSE_MAX_POS``, ``_get_split_fns``) -
 eager torch runs the join and the scans as separate launches anyway;
-``lax.map`` over slabs - a Python loop keeps one slab's scan
-temporaries alive at a time; the two-plane uint32 and float64 count
-sums - one int64 cumsum is exact. The slab size keeps its environment
+``lax.map`` over slabs - a Python loop of one scan launch per slab; the
+two-plane uint32 and float64 count sums - the scan sums in int64,
+exactly. The slab size keeps its environment
 names (``KCFTOOLS_DJOIN_SLAB``, then ``KCFTOOLS_DPREFIX_SLAB``) and its
 2^24 default, which still has to be re-measured on the H100.
 
@@ -46,6 +47,7 @@ import torch
 from ..native import get_lib
 from ..utils.logger import Logger
 from .encode import split_hi_lo
+from ..ops.gapscan import slab_scan_join
 from ..ops.pjoin import (
     _round_up,
     as_i32,
@@ -55,34 +57,11 @@ from ..ops.pjoin import (
     tile_sorted,
 )
 from ..parallel.mesh import all_gather_columns
-from .device_prefix import (
-    _FIELDS,
-    _Layout,
-    _phase,
-    _scan_core,
-    _unpack_bits,
-)
+from .device_prefix import _FIELDS, _Layout, _phase
 
 _CLASS = "DeviceJoin"
 
 _JFIELDS = _FIELDS + ("count_sum",)
-
-
-def _slab_scan(routed_flat, slot_map, valid_bits, w_start, w_hi, *,
-               k: int, min_count: int):
-    """One slab's per-window stats from the routed join counts.
-    Returns (6, win_pad) int64: observed, variations, inner, left,
-    right, count_sum."""
-    valid = _unpack_bits(valid_bits)
-    zero = torch.zeros(1, dtype=torch.int64, device=valid.device)
-    cs_tot = torch.cat([zero, torch.cumsum(valid, 0, dtype=torch.int64)])
-    # the counts are uint32 bit patterns: compare them unsigned
-    cnts = routed_flat.index_select(0, slot_map).long() & 0xFFFFFFFF
-    pr = (cnts >= min_count) & valid
-    five = _scan_core(pr, cs_tot, w_start, w_hi, k=k)
-    csq = torch.cat([zero, torch.cumsum(torch.where(pr, cnts, 0), 0)])
-    count_sum = csq[w_hi + 1] - csq[w_start]
-    return torch.cat([five, count_sum[None, :]], dim=0)
 
 
 class DeviceJoinScorer:
@@ -270,8 +249,8 @@ class DeviceJoinScorer:
             dtype=torch.int64, device=flat.device,
         )
         for si, (sm, vb, ws, wh) in enumerate(statics):
-            res[si] = _slab_scan(flat, sm, vb, ws, wh, k=self.k,
-                                 min_count=self.min_count)
+            res[si] = slab_scan_join(flat, sm, vb, ws, wh, k=self.k,
+                                     min_count=self.min_count)
         return res
 
     def _fetch(self, handle):

@@ -4,8 +4,8 @@ Port of kcftools_tpu/engine/device_prefix.py, the engine behind
 ``getVariations --engine dprefix`` and the streamed low-memory ingest:
 the host owns the per-sample merge join and the positional pack (the
 shared native tier), the device owns the scan-shaped work - the
-per-window gap-run state machine of Plugins/GetVariants.java:219-273 as
-prefix scans plus O(1) boundary gathers (``_scan_core``).
+per-window gap-run state machine of Plugins/GetVariants.java:219-273
+(``ops/gapscan.py::rows_scan``).
 
 Per sample the host packs, for every slab, either a presence bitmap or
 the compact absent-run stream of it (native ``kcf_bits_to_runs``; see
@@ -15,12 +15,12 @@ uploaded as one (S, ...) uint8 tensor per slab and scored by one call of
 ``_score_batch`` (the bitmaps). The chromosomes are cut into
 window-aligned slabs (``_Layout``), so no window straddles a slab.
 
-The scans are plain torch ops: ``torch.cumsum``, ``torch.cummax``, a
-reverse cummin as flip / cummin / flip, and index gathers. All prefix
-sums are int64, so the inner-distance sum is exact where the JAX version
-keeps a uint32 modular prefix. The group's sample rows are scanned one
-at a time: a row's scan holds about a dozen slab-sized int64
-temporaries, too many to hold for 16 rows at once.
+Every row of a group goes through one ``rows_scan`` per slab and pool
+slot: on the card one launch of the kernel csrc/gapscan.cu, on the CPU
+its plain torch version. Its sums are int64, so the inner-distance sum
+is exact where the JAX version keeps a uint32 modular prefix. The run
+program decodes the group's absent runs with torch ops, all rows at
+once, into presence bitmaps for the scan.
 
 Over several devices (``devices=``, a list of mesh slots) the genome's
 slabs spread across the slots; with more slots than slabs each slab gets
@@ -53,6 +53,7 @@ from ..native import (
     ordpack,
     pack_posbits,
 )
+from ..ops.gapscan import _unpack_bits, rows_scan
 from ..utils import stagetimer
 from ..torchinit import Slot, process_index, sync_devices
 
@@ -92,96 +93,26 @@ class _phase(stagetimer.stage):
         return super().__exit__(*exc)
 
 
-def _cummin_rev(x):
-    return torch.flip(torch.cummin(torch.flip(x, [0]), 0).values, [0])
-
-
-def _scan_core(pr, cs_tot, w_start, w_hi, *, k: int):
-    """One sample's window statistics from per-position presence.
-
-    pr: (n,) bool presence over k-mer start positions; cs_tot: (n+1,)
-    int64 prefix counts of valid k-mers; w_start / w_hi: (win_pad,)
-    int64 first / last k-mer start of each window (inclusive, slab
-    coordinates). Returns (5, win_pad) int64 rows: observed,
-    variations, inner, left, right.
-    """
-    n = pr.shape[0]
-    dev = pr.device
-    vidx = cs_tot[1:] - 1  # valid ordinal at each position (where valid)
-    pos = torch.arange(n, device=dev)
-    s = w_start
-    hi = w_hi
-    total = cs_tot[hi + 1] - cs_tot[s]
-    zero = torch.zeros(1, dtype=torch.int64, device=dev)
-    minus1 = torch.full((1,), -1, dtype=torch.int64, device=dev)
-
-    pres_ord = torch.where(pr, vidx, -1)
-    prev_ord = torch.cummax(torch.cat([minus1, pres_ord[:-1]]), 0).values
-    next_ge = _cummin_rev(torch.where(pr, pos, n))
-    last_le = torch.cummax(torch.where(pr, pos, -1), 0).values
-
-    cs_obs = torch.cat([zero, torch.cumsum(pr, 0, dtype=torch.int64)])
-    gap = vidx - prev_ord - 1
-    closed = pr & (prev_ord >= 0) & (gap > 0)
-    d = gap - (k - 1)
-    dist = torch.where(d > 0, d, torch.abs(d + 1))
-    cs_var = torch.cat([zero, torch.cumsum(closed, 0, dtype=torch.int64)])
-    cs_dist = torch.cat([zero, torch.cumsum(torch.where(closed, dist, 0), 0)])
-
-    observed = cs_obs[hi + 1] - cs_obs[s]
-    has = observed > 0
-    fp = torch.clamp(next_ge[s], 0, n - 1)
-    lp = torch.clamp(last_le[hi], 0, n - 1)
-    left = torch.where(has, cs_tot[fp] - cs_tot[s], 0)
-    right = torch.where(has, cs_tot[hi + 1] - cs_tot[lp + 1], total)
-    inner = torch.where(has, cs_dist[hi + 1] - cs_dist[fp + 1], 0)
-    var_int = torch.where(has, cs_var[hi + 1] - cs_var[fp + 1], 0)
-    variations = torch.where(
-        has,
-        var_int + (left > 0).long() + (right > 0).long(),
-        (total > 0).long(),
-    )
-    return torch.stack([observed, variations, inner, left, right])
-
-
-def _unpack_bits(b8):
-    """(n/8,) uint8 LSB-first bitmap -> (n,) bool."""
-    shifts = torch.arange(8, dtype=torch.int32, device=b8.device)
-    return ((b8.int()[:, None] >> shifts) & 1).reshape(-1) != 0
-
-
-def _cs_tot(valid_bits):
-    """(n+1,) int64 prefix counts of valid positions, from the packed
-    (n/8,) uint8 valid bitmap (a 64x smaller upload than the prefix)."""
-    bits = _unpack_bits(valid_bits)
-    zero = torch.zeros(1, dtype=torch.int64, device=bits.device)
-    return torch.cat([zero, torch.cumsum(bits, 0, dtype=torch.int64)])
-
-
 def _count_cuda_call(fn, t):
     if t.device.type == "cuda":
         fn.cuda_calls += 1
 
 
-def _score_batch(mat, cs_tot, w_start, w_hi, *, k: int):
+def _score_batch(mat, valid_bits, w_start, w_hi, *, k: int):
     """Score S samples over one slab from positional presence BITMAPS.
     mat: (S, slab_pad/8) uint8 LSB-first bitmaps. Returns (5, S,
-    win_pad) int64. ``_score_batch.cuda_calls`` counts its calls on a
-    CUDA device."""
+    win_pad) int64, every row through one ``rows_scan``.
+    ``_score_batch.cuda_calls`` counts its calls on a CUDA device."""
     _count_cuda_call(_score_batch, mat)
-    out = torch.empty((5, mat.shape[0], w_start.shape[0]),
-                      dtype=torch.int64, device=mat.device)
-    for r in range(mat.shape[0]):
-        out[:, r] = _scan_core(_unpack_bits(mat[r]), cs_tot, w_start, w_hi,
-                               k=k)
-    return out
+    return rows_scan(mat, valid_bits, w_start, w_hi, k=k)
 
 
 def _runs_presence(dl, valid):
-    """Presence over n positions from one sample's ABSENT-RUN payload
-    (native kcf_bits_to_runs encoding: delta u8 from the previous run's
-    end with (255, 0) fillers, length u8 with (0, 255) continuations,
-    zero-padded with (0, 0)). dl: (2, run_cap) uint8; valid: (n,) bool.
+    """Presence over n positions from ABSENT-RUN payloads (native
+    kcf_bits_to_runs encoding: delta u8 from the previous run's end with
+    (255, 0) fillers, length u8 with (0, 255) continuations, zero-padded
+    with (0, 0)). dl: (..., 2, run_cap) uint8, one payload per row;
+    valid: (n,) bool. Returns (..., n) bool.
 
     Absent stretches are disjoint, so +1 at each run's start, -1 at its
     end and one prefix sum give 1 exactly inside a run. Empty entries
@@ -193,35 +124,44 @@ def _runs_presence(dl, valid):
     ``valid``, so the result is exact. No step waits for the host (no
     boolean-mask indexing), so the scans of several devices overlap."""
     n = valid.shape[0]
-    d = dl[0].long()
-    ln = dl[1].long()
-    ends = torch.cumsum(d + ln, 0)
+    lead = dl.shape[:-2]
+    dl = dl.reshape(-1, 2, dl.shape[-1])
+    d = dl[:, 0].long()
+    ln = dl[:, 1].long()
+    ends = torch.cumsum(d + ln, 1)
     starts = ends - ln
-    delta = torch.zeros(n + 1, dtype=torch.int8, device=valid.device)
+    rows = torch.arange(dl.shape[0], device=valid.device)[:, None]
+    rows = rows.expand(ends.shape)
+    delta = torch.zeros((dl.shape[0], n + 1), dtype=torch.int8,
+                        device=valid.device)
     for idx, v in ((starts, 1), (ends, -1)):
         idx = torch.where((ln > 0) & (idx < n), idx, n)
         delta.index_put_(
-            (idx,), torch.full(idx.shape, v, dtype=torch.int8,
-                               device=idx.device),
+            (rows, idx), torch.full(idx.shape, v, dtype=torch.int8,
+                                    device=idx.device),
             accumulate=True,
         )
-    absent = torch.cumsum(delta[:n], 0, dtype=torch.int8) > 0
-    return ~absent & valid
+    absent = torch.cumsum(delta[:, :n], 1, dtype=torch.int8) > 0
+    return (~absent & valid).reshape(*lead, n)
 
 
-def _score_runs(dl, cs_tot, w_start, w_hi, *, k: int):
+def _pack_bits(pr):
+    """(S, n) bool -> (S, n/8) uint8 LSB-first bitmaps."""
+    weights = torch.tensor([1 << b for b in range(8)], dtype=torch.uint8,
+                           device=pr.device)
+    b8 = pr.view(pr.shape[0], -1, 8).to(torch.uint8).mul_(weights)
+    return b8.sum(-1, dtype=torch.uint8)
+
+
+def _score_runs(dl, valid_bits, w_start, w_hi, *, k: int):
     """Score S samples over one slab from compact ABSENT-RUN payloads.
-    dl: (S, 2, run_cap) uint8 (see ``_runs_presence``). Returns (5, S,
-    win_pad) int64. ``_score_runs.cuda_calls`` counts its calls on a
-    CUDA device."""
+    dl: (S, 2, run_cap) uint8 (see ``_runs_presence``), decoded for all
+    rows at once into presence bitmaps for one ``rows_scan``. Returns
+    (5, S, win_pad) int64. ``_score_runs.cuda_calls`` counts its calls
+    on a CUDA device."""
     _count_cuda_call(_score_runs, dl)
-    valid = cs_tot[1:] > cs_tot[:-1]
-    out = torch.empty((5, dl.shape[0], w_start.shape[0]),
-                      dtype=torch.int64, device=dl.device)
-    for r in range(dl.shape[0]):
-        out[:, r] = _scan_core(_runs_presence(dl[r], valid), cs_tot,
-                               w_start, w_hi, k=k)
-    return out
+    pr = _runs_presence(dl, _unpack_bits(valid_bits))
+    return rows_scan(_pack_bits(pr), valid_bits, w_start, w_hi, k=k)
 
 
 _score_batch.cuda_calls = 0
@@ -441,7 +381,7 @@ class DevicePrefixScorer:
     def _build_statics(self):
         """Per-slab host pack maps (valid bitmap, occurrence map) and,
         on each slot of the slab's pool, its device tensors (valid
-        prefix, window bounds). Slabs go round-robin over the slots;
+        bitmap, window bounds). Slabs go round-robin over the slots;
         with more slots than slabs each slab gets a pool of ``spread``
         slots, over which a group's sample rows split."""
         n_dev = len(self.devices)
@@ -466,12 +406,12 @@ class DevicePrefixScorer:
             valid_bits = np.zeros(nbb, np.uint8)
             packed = np.packbits(slab["r_idx"] >= 0, bitorder="little")
             valid_bits[: packed.shape[0]] = packed
-            on_dev = {}  # torch device -> (cs_tot, w_start, w_hi)
+            on_dev = {}  # torch device -> (valid_bits, w_start, w_hi)
             for slot in pool:
                 if slot.device not in on_dev:
                     dev = slot.device
                     on_dev[dev] = (
-                        _cs_tot(torch.from_numpy(valid_bits).to(dev)),
+                        torch.from_numpy(valid_bits).to(dev),
                         torch.from_numpy(
                             slab["w_start"].astype(np.int64)).to(dev),
                         torch.from_numpy(
@@ -479,7 +419,7 @@ class DevicePrefixScorer:
                     )
             st = {
                 "pool": pool,
-                # per pool slot: (cs_tot, w_start, w_hi)
+                # per pool slot: (valid_bits, w_start, w_hi)
                 "tensors": [on_dev[slot.device] for slot in pool],
                 # static valid bitmap for the run encoder (host)
                 "valid_bits": valid_bits,

@@ -80,6 +80,14 @@ def load(name):
     return lib
 
 
+def load_all(names):
+    """``load`` every named source, their nvcc builds run together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
+        return list(ex.map(load, names))
+
+
 def _pjoin_lib():
     lib = load("pjoin")
     fn = lib.kcf_pjoin_launch
@@ -102,3 +110,39 @@ def launch_pjoin(qh, ql, th, tl, tc, out, P, Tq, Tt, packed):
         )
     if rc != 0:
         raise RuntimeError(f"pjoin kernel launch failed: CUDA error {rc}")
+
+
+def _gapscan_lib():
+    lib = load("gapscan")
+    fn = lib.kcf_gapscan_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        *[ctypes.c_void_p] * 6, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    return fn
+
+
+def launch_gapscan(presence, routed, slot_map, valid_bits, w_start, w_hi,
+                   chunks, out, n, S, k, min_count):
+    """Launch csrc/gapscan.cu (both passes) on the current stream of
+    ``out``'s device: the ROWS mode with ``presence``, else the JOIN mode
+    with ``routed`` and ``slot_map``. Operands are checked by the caller
+    (ops/gapscan.py)."""
+    fn = _gapscan_lib()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = fn(
+            ptr(presence), ptr(routed),
+            0 if routed is None else routed.numel(), ptr(slot_map),
+            valid_bits.data_ptr(), w_start.data_ptr(), w_hi.data_ptr(),
+            chunks.data_ptr(), out.data_ptr(), n, S, w_start.numel(), k,
+            min_count, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"gapscan kernel launch failed: CUDA error {rc}")

@@ -1,8 +1,8 @@
 """The port's dprefix engine (kcftools_tpu_torch/engine/device_prefix.py,
 on the CPU device) against the JAX package's and the host prefix engine.
 
-The device programs (``_cs_tot``, ``_score_batch``, ``_score_runs``) are
-held against the JAX jitted programs on the same numpy inputs, and the
+The device programs (``ops/gapscan.py::_cs_tot``, ``_score_batch``,
+``_score_runs``) are held against the JAX jitted programs on the same numpy inputs, and the
 port's DevicePrefixScorer against the JAX scorer and
 ``prefix_scan.chromosome_stats_indirect`` / ``window_stats`` on the
 cases of tests/test_device_prefix.py and tests/test_runs_uplink.py.
@@ -26,6 +26,7 @@ from kcftools_tpu.engine.prefix_scan import (
 from kcftools_tpu.engine.windows import tiling_windows
 from kcftools_tpu.native import bits_to_runs, merge_counts, merge_counts_u8
 from kcftools_tpu_torch.engine import device_prefix as tdp
+from kcftools_tpu_torch.ops import gapscan as tgs
 
 _FIELDS = ("observed", "variations", "inner", "left", "right", "count_sum")
 _CPU = torch.device("cpu")
@@ -82,7 +83,7 @@ def test_cs_tot_matches_jax(rng):
     valid[4000:4600] = False
     vb = np.packbits(valid, bitorder="little")
     want = np.asarray(_jax_cs_tot_fn()(jnp.asarray(vb)))
-    got = tdp._cs_tot(_t(vb))
+    got = tgs._cs_tot(_t(vb))
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
 
@@ -98,8 +99,9 @@ def test_score_batch_matches_jax(rng, k):
     fn = jax.jit(functools.partial(jdp._score_batch, k=k))
     want = np.asarray(fn(jnp.asarray(mat), jnp.asarray(cs_tot),
                          jnp.asarray(ws), jnp.asarray(wh)))
-    got = tdp._score_batch(_t(mat), _t(cs_tot).long(), _t(ws).long(),
-                           _t(wh).long(), k=k)
+    vb = np.packbits(valid, bitorder="little")
+    got = tdp._score_batch(_t(mat), _t(vb), _t(ws).long(), _t(wh).long(),
+                           k=k)
     assert got.shape == (5, 3, ws.shape[0])
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
 
@@ -130,7 +132,7 @@ def test_score_runs_matches_jax(rng, k):
     fn = jax.jit(functools.partial(jdp._score_runs, k=k))
     want = np.asarray(fn(jnp.asarray(dl), jnp.asarray(cs_tot),
                          jnp.asarray(ws), jnp.asarray(wh)))
-    args = (_t(cs_tot).long(), _t(ws).long(), _t(wh).long())
+    args = (_t(vb), _t(ws).long(), _t(wh).long())
     got = tdp._score_runs(_t(dl), *args, k=k)
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
     via_bits = tdp._score_batch(_t(np.stack(bits)), *args, k=k)

@@ -20,9 +20,11 @@ from kcftools_tpu_torch.engine.windows import pad_batch_varlen, tiling_windows
 from kcftools_tpu_torch.engine import device_prefix as tdp
 from kcftools_tpu_torch.engine import pipeline as tpl
 from kcftools_tpu_torch.engine.device_join import DeviceJoinScorer
+from kcftools_tpu_torch.ops import gapscan as tgs
 from kcftools_tpu_torch.ops import lookup as tlk
 from kcftools_tpu_torch.ops import pjoin as tpj
 
+from .torch_gapscan_cases import bits, join_case, rows_case
 from .torch_join_cases import EDGE_SHAPES, hard_join_operands, layout_width
 
 _TOP32 = np.uint64(0xFFFFFFFF00000000)  # k=32 T^16A^16
@@ -145,11 +147,13 @@ def test_device_join_scorer_gpu_matches_cpu(cuda_device, counts_hi):
     db, dbc = np.unique(canonicalize(km2[kv2], k), return_counts=True)
     dbc = dbc.astype(np.uint32) * np.uint32(1000 if counts_hi else 7)
     out = {}
+    before = tgs.slab_scan_join.launches
     for dev in (torch.device("cpu"), cuda_device):
         sc = DeviceJoinScorer(_Ref(refk), k, dev, min_count=2)
         sc.add_chrom("c", r_idx, starts, ends)
         sc.submit(0, refk, db, dbc)
         out[dev.type] = sc.collect(0)["c"]
+    assert tgs.slab_scan_join.launches == before + len(sc._layout.slabs)
     for f, want in out["cpu"].items():
         np.testing.assert_array_equal(out["cuda"][f], want, err_msg=f)
     assert out["cuda"]["observed"].sum() > 0
@@ -190,6 +194,7 @@ def test_device_prefix_scorer_gpu_matches_cpu(cuda_device, monkeypatch,
               (db[keep], dbc[keep])]
     fn = tdp._score_runs if kind == "runs" else tdp._score_batch
     before = fn.cuda_calls
+    scans = tgs.rows_scan.launches
     out = {}
     for dev in (torch.device("cpu"), cuda_device):
         sc = tdp.DevicePrefixScorer(None, k, dev, min_count=2, batch=3)
@@ -201,6 +206,7 @@ def test_device_prefix_scorer_gpu_matches_cpu(cuda_device, monkeypatch,
         assert len(sc._layout.slabs) == 2
         sc.close()
     assert fn.cuda_calls == before + 2  # one call per slab
+    assert tgs.rows_scan.launches == scans + 2  # all 3 rows in one launch
     for got, want in zip(out["cuda"], out["cpu"]):
         for f, w in want.items():
             np.testing.assert_array_equal(got[f], w, err_msg=f)
@@ -337,3 +343,85 @@ def test_dryrun_multichip_gpu(cuda_device, monkeypatch):
     monkeypatch.setenv("KCFTOOLS_TORCH_DEVICE", "cuda:0")
     monkeypatch.setenv("KCFTOOLS_TORCH_VIRTUAL_DEVICES", "4")
     dryrun_multichip(4)
+
+
+def _on(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+@pytest.fixture
+def no_plain_scan(monkeypatch):
+    """A CUDA tensor must never reach the plain scan."""
+    def boom(*_a, **_k):
+        raise AssertionError("a CUDA tensor reached the plain scan")
+
+    plain = {"join": tgs.slab_scan_join_ref, "rows": tgs.rows_scan_ref}
+    monkeypatch.setattr(tgs, "slab_scan_join_ref", boom)
+    monkeypatch.setattr(tgs, "rows_scan_ref", boom)
+    return plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_count", [1, 3])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_gapscan_join_kernel_matches_plain(cuda_device, no_plain_scan, seed,
+                                           min_count):
+    """The JOIN mode on every window kind (inverted ones too), counts at
+    and above 2^31, bit-exact against the plain version; one launch."""
+    routed, slot_map, valid, ws, wh = join_case(seed, min_count,
+                                                inverted=True)
+    args = _on(cuda_device, routed.view(np.int32), slot_map, bits(valid),
+               ws, wh)
+    before = tgs.slab_scan_join.launches
+    got = tgs.slab_scan_join(*args, k=31, min_count=min_count)
+    torch.cuda.synchronize()
+    assert tgs.slab_scan_join.launches == before + 1
+    want = no_plain_scan["join"](*args, k=31, min_count=min_count)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [17, 31, 45])
+def test_gapscan_rows_kernel_matches_plain(cuda_device, no_plain_scan, k):
+    """The ROWS mode: four rows (dense, sparse, all absent, all present)
+    in one launch, bit-exact against the plain version."""
+    pr, valid, ws, wh = rows_case(30 + k, k, inverted=True)
+    args = _on(cuda_device, bits(pr), bits(valid), ws, wh)
+    before = tgs.rows_scan.launches
+    got = tgs.rows_scan(*args, k=k)
+    torch.cuda.synchronize()
+    assert tgs.rows_scan.launches == before + 1
+    assert torch.equal(got, no_plain_scan["rows"](*args, k=k))
+
+
+@pytest.mark.cuda
+def test_gapscan_main_width(cuda_device):
+    """One slab at the main path's width (2^24 positions, 4,970-position
+    tiling windows padded to 4,096 entries) in both modes, bit-exact."""
+    n, width = 1 << 24, 5000 - 31 + 1
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    valid = torch.rand(n, generator=g, device=cuda_device) > 0.02
+    valid[n // 3 : n // 3 + 5000] = False
+    routed = torch.randint(0, 50, (1 << 22,), generator=g,
+                           device=cuda_device, dtype=torch.int32)
+    routed[::9] = torch.randint(-(1 << 31), 0, routed[::9].shape,
+                                generator=g, device=cuda_device,
+                                dtype=torch.int32)  # counts >= 2^31
+    slot_map = torch.randint(0, routed.numel(), (n,), generator=g,
+                             device=cuda_device, dtype=torch.int32)
+    vb = tdp._pack_bits(valid[None])[0]
+    ws = torch.arange(0, n - width, width, device=cuda_device)
+    pad = 4096 - ws.numel()
+    ws = torch.cat([ws, torch.zeros(pad, dtype=torch.int64,
+                                    device=cuda_device)])
+    wh = torch.where(ws > 0, ws + width - 1, 0)
+    wh[0] = width - 1
+    got = tgs.slab_scan_join(routed, slot_map, vb, ws, wh, k=31, min_count=3)
+    want = tgs.slab_scan_join_ref(routed, slot_map, vb, ws, wh, k=31,
+                                  min_count=3)
+    assert torch.equal(got, want)
+    assert int(got[0].sum()) > n // 2
+    pres = (torch.rand((2, n), generator=g, device=cuda_device) < 0.9) & valid
+    pb = tdp._pack_bits(pres)
+    got = tgs.rows_scan(pb, vb, ws, wh, k=31)
+    assert torch.equal(got, tgs.rows_scan_ref(pb, vb, ws, wh, k=31))

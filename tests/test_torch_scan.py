@@ -1,5 +1,5 @@
-"""The port's gap-run prefix scan (kcftools_tpu_torch/engine/
-device_prefix.py::_scan_core, device_join.py::_slab_scan) and slab
+"""The port's gap-run prefix scan (kcftools_tpu_torch/ops/gapscan.py:
+the plain ``_scan_core`` and ``slab_scan_join`` on CPU tensors) and slab
 layout against the JAX package's, on the same numpy inputs. Exact: the
 statistics are integers."""
 
@@ -10,8 +10,8 @@ import torch
 
 from kcftools_tpu.engine import device_join as jdj
 from kcftools_tpu.engine import device_prefix as jdp
-from kcftools_tpu_torch.engine import device_join as tdj
 from kcftools_tpu_torch.engine import device_prefix as tdp
+from kcftools_tpu_torch.ops import gapscan as tgs
 
 
 def _windows(rng, n, k):
@@ -56,7 +56,7 @@ def test_scan_core_matches_jax(k, density):
         jdp._scan_core(jnp.asarray(pr), jnp.asarray(cs_tot),
                        jnp.asarray(ws), jnp.asarray(wh), k=k)
     )
-    got = tdp._scan_core(
+    got = tgs._scan_core(
         torch.from_numpy(pr), torch.from_numpy(cs_tot).long(),
         torch.from_numpy(ws).long(), torch.from_numpy(wh).long(), k=k,
     )
@@ -84,7 +84,7 @@ def test_slab_scan_matches_jax(min_count):
         jnp.asarray(ws), jnp.asarray(wh), k=k, min_count=min_count,
         wide_windows=True,
     ))
-    got = tdj._slab_scan(
+    got = tgs.slab_scan_join(
         torch.from_numpy(routed.view(np.int32)), torch.from_numpy(slot_map),
         torch.from_numpy(vbits), torch.from_numpy(ws).long(),
         torch.from_numpy(wh).long(), k=k, min_count=min_count,
