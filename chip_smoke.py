@@ -14,23 +14,28 @@ Phases (any failure exits non-zero):
                 card. The join at the edge shapes (EDGE_SHAPES) and the
                 main path's (P = 2^16 partitions, Tq = Tt = 1024), on
                 operands with duplicate keys, wrapping uint32 sums and the
-                all-ones key; the window scan in both modes on the edge
-                cases of tests/torch_gapscan_cases.py and at the main
-                shapes (the JOIN mode over one 2^24-position slab, the
-                ROWS mode over 3 rows of the dprefix slab, SCAN_ROWS_N
-                positions; 4,970-position tiling windows). Outputs must be
-                bit-identical; at the main shapes the kernel, plain and
-                library (``torch.searchsorted`` for the join; none for
-                the scan) times from CUDA events, beside the bound (bytes
-                over HBM_BYTES_PER_S);
+                all-ones key; the window scan in its three modes on the
+                edge cases of tests/torch_gapscan_cases.py and at the main
+                shapes (the JOIN mode over one 2^24-position slab and over
+                the main path's own 4 slabs of 10,485,760 positions in one
+                launch; the ROWS mode over 3 rows of the dprefix slab,
+                SCAN_ROWS_N positions; the RUNS mode over the native run
+                streams of the same rows; 4,970-position tiling windows).
+                Outputs must be bit-identical; at the main shapes the
+                kernel, plain and library (``torch.searchsorted`` for the
+                join; none for the scan) times from CUDA events, beside
+                the bound (bytes over HBM_BYTES_PER_S), for the JOIN mode
+                the sector floor (SECTOR_BYTES a gathered count) and for
+                the RUNS mode its design floor (the bound plus the decoded
+                bitmaps written and read back once);
   4. slice    - synthesises a 40 Mbp reference in 4 chromosomes (N runs
                 sprinkled) and 3 KMC samples at 1% SNPs (the third with
                 counts > 255 up to 2^32 - 1, so both kernel variants
                 run), then runs ``getVariations -f window -w 5000
                 --engine device`` (k = 31) through the port's CLI, cold
                 and warm, with the kernel launch counters zeroed just
-                before each (one join launch per sample, one scan launch
-                per slab and sample); checks the KCF bytes against the
+                before each (one join launch and one scan launch per
+                sample); checks the KCF bytes against the
                 port's
                 ``--engine hybrid`` (host) output, the window count and
                 that jax never loaded; prints windows/s and the
@@ -51,8 +56,10 @@ Phases (any failure exits non-zero):
                 1-10 kb, 1-3 transcripts of 2-6 exons, both strands, a few
                 genes shorter than k). Call counters, zeroed before each
                 run, show that each program ran on the card, and the
-                scan kernel's launch count that each dprefix program
-                call launched it once (all rows of a group); prints
+                scan kernel's launch counts that each dprefix program
+                call launched it once for all rows of its group (the run
+                program through ``runs_scan``, the bitmap program through
+                ``rows_scan``); prints
                 windows/s per engine and the dprefix_* stage seconds.
   6. mesh     - the multi-device tier on the visible GPUs, or, with one
                 card, on a virtual mesh of 4 slots that all run on
@@ -66,7 +73,7 @@ Phases (any failure exits non-zero):
                 ``--engine hybrid`` bytes. Then ``MeshJoinScorer`` on a
                 (2, 2) mesh for the three samples against
                 ``DeviceJoinScorer`` (pjoin launches rising by the table
-                axis per sample, scan launches by its slabs) and
+                axis per sample, scan launches by its data rows) and
                 ``dryrun_multichip(4)``. Prints each
                 run's wall time and windows/s under the card's name and
                 power limit.
@@ -110,16 +117,21 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (80 GB HBM3), NVIDIA's data sheet
 DJOIN_SLAB = 1 << 24  # the device join's default slab (positions)
 SCAN_WIN = 5000 - K + 1  # k-mer positions of a -w 5000 window
 SCAN_ROWS_N = 39 << 20  # the dprefix slab of the 40 Mbp slice (pos_pad)
+# the device join's slabs of the 40 Mbp slice: one 10 Mbp chromosome each
+MAIN_SLABS, MAIN_SLAB_POS, MAIN_SLAB_SPAN = 4, 10 << 20, 10_000_000 - K + 1
+SECTOR_BYTES = 32  # what one random 4-byte gather moves from device memory
 # name -> (wrapper, its launch counter, source, what it replaces)
 KERNELS = {
     "pjoin_packed": ("pjoin_join", "launches_packed", "csrc/pjoin.cu",
                      "kcftools_tpu/ops/pjoin.py:179"),
     "pjoin_u32": ("pjoin_join", "launches_u32", "csrc/pjoin.cu",
                   "kcftools_tpu/ops/pjoin.py:198"),
-    "gapscan_join": ("slab_scan_join", "launches", "csrc/gapscan.cu",
+    "gapscan_join": ("slabs_scan_join", "launches", "csrc/gapscan.cu",
                      "kcftools_tpu/engine/device_join.py:58"),
     "gapscan_rows": ("rows_scan", "launches", "csrc/gapscan.cu",
-                     "kcftools_tpu/engine/device_prefix.py:105"),
+                     "kcftools_tpu/engine/device_prefix.py:167"),
+    "gapscan_runs": ("runs_scan", "launches", "csrc/gapscan.cu",
+                     "kcftools_tpu/engine/device_prefix.py:187"),
 }
 MAIN_PATH = ("pjoin_packed", "pjoin_u32", "gapscan_join")  # phase 4
 
@@ -329,47 +341,57 @@ def _snp_presence(g, rows, n, valid, dev):
     return (cs == 0) & valid
 
 
-def _tiling(n, dev):
-    """SCAN_WIN-position tiling windows over n positions, padded with
-    [0, 0] entries to a multiple of 1,024 (the layout's window bucket)."""
-    ws = torch.arange(0, n - SCAN_WIN + 1, SCAN_WIN, device=dev)
+def _tiling(n, dev, span=None):
+    """SCAN_WIN-position tiling windows over the first ``span`` (default
+    n) positions, padded with [0, 0] entries to a multiple of 1,024 (the
+    layout's window bucket)."""
+    span = n if span is None else span
+    ws = torch.arange(0, span - SCAN_WIN + 1, SCAN_WIN, device=dev)
     wh = ws + SCAN_WIN - 1
     pad = torch.zeros(-ws.numel() % 1024, dtype=torch.int64, device=dev)
     return torch.cat([ws, pad]), torch.cat([wh, pad])
 
 
-def scan_join_operands(dev, seed, min_count):
-    """The JOIN mode at the main path's shapes: one DJOIN_SLAB-position
-    slab whose positions hold distinct slots of MAIN_P * MAIN_TQ routed
-    counts (0 at invalid positions), present counts in [min_count, 255]
-    and every thousandth at or above 2^31, absent ones below min_count.
-    Returns (args, bytes the scan must move)."""
-    from kcftools_tpu_torch.engine.device_prefix import _pack_bits
+def scan_join_operands(dev, seed, min_count, slabs=1, n=None, span=None):
+    """The JOIN mode over ``slabs`` slabs of n (default DJOIN_SLAB)
+    positions (one sample),
+    each tiled over its first ``span`` positions (the rest invalid
+    padding): every position holds a distinct slot of MAIN_P * MAIN_TQ
+    routed counts (0 at invalid positions), present counts in
+    [min_count, 255] and every thousandth at or above 2^31, absent ones
+    below min_count. Returns (args, bytes the scan must move, the sector
+    floor's bytes: the same with SECTOR_BYTES a gathered count)."""
+    from kcftools_tpu_torch.ops.gapscan import _pack_bits
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    n = DJOIN_SLAB
-    valid = _scan_valid(g, n, dev)
-    pres = _snp_presence(g, 1, n, valid, dev)[0]
+    n = DJOIN_SLAB if n is None else n
+    span = n if span is None else span
+    valid = torch.stack([_scan_valid(g, n, dev) for _ in range(slabs)])
+    valid[:, span:] = False
+    pres = torch.cat([_snp_presence(g, 1, n, v, dev) for v in valid])
     n_routed = MAIN_P * MAIN_TQ
-    slots = torch.randperm(n_routed, generator=g, device=dev)[:n]
-    cnt = torch.randint(min_count, 256, (n,), generator=g, device=dev)
-    cnt[::1000] = torch.randint(1 << 31, 1 << 32, cnt[::1000].shape,
-                                generator=g, device=dev)
-    low = torch.randint(0, min_count, (n,), generator=g, device=dev)
+    slots = torch.randperm(n_routed, generator=g,
+                           device=dev)[: slabs * n].view(slabs, n)
+    cnt = torch.randint(min_count, 256, (slabs, n), generator=g, device=dev)
+    big = cnt.view(-1)[::1000]
+    cnt.view(-1)[::1000] = torch.randint(1 << 31, 1 << 32, big.shape,
+                                         generator=g, device=dev)
+    low = torch.randint(0, min_count, (slabs, n), generator=g, device=dev)
     routed = torch.zeros(n_routed, dtype=torch.int64, device=dev)
     routed[slots] = torch.where(pres, cnt, low)
     slot_map = torch.where(valid, slots, 0).to(torch.int32)
-    ws, wh = _tiling(n, dev)
-    args = [_i32_bits(routed), slot_map, _pack_bits(valid[None])[0], ws, wh]
-    nbytes = (4 * n + 4 * int(valid.sum()) + n // 8
-              + (16 + 48) * ws.numel())
-    return args, nbytes
+    ws, wh = _tiling(n, dev, span)
+    args = [_i32_bits(routed), slot_map, _pack_bits(valid),
+            ws.expand(slabs, -1).contiguous(), wh.expand(slabs, -1).contiguous()]
+    n_valid = int(valid.sum())
+    rest = slabs * (4 * n + n // 8 + (16 + 48) * ws.numel())
+    return args, rest + 4 * n_valid, rest + SECTOR_BYTES * n_valid
 
 
 def scan_rows_operands(dev, seed, rows):
     """The ROWS mode at the dprefix slab of the slice: ``rows`` presence
     bitmaps of SCAN_ROWS_N positions. Returns (args, bytes to move)."""
-    from kcftools_tpu_torch.engine.device_prefix import _pack_bits
+    from kcftools_tpu_torch.ops.gapscan import _pack_bits
 
     g = torch.Generator(device=dev).manual_seed(seed)
     n = SCAN_ROWS_N
@@ -379,6 +401,34 @@ def scan_rows_operands(dev, seed, rows):
     args = [pres, _pack_bits(valid[None])[0], ws, wh]
     nbytes = (rows + 1) * n // 8 + (16 + 40 * rows) * ws.numel()
     return args, nbytes
+
+
+def scan_runs_operands(dev, seed, rows):
+    """The RUNS mode at the same shapes: the absent-run streams that the
+    native kcf_bits_to_runs makes of the ROWS mode's presence rows, in
+    the dprefix engine's run budget (twice the longest stream, rounded up
+    to 4,096 entries). Returns (args, bytes the function must move: the
+    streams, the valid bitmap, bounds and output; the design floor's
+    bytes: the same plus the decoded bitmaps, the kernel's own scratch,
+    written and read back once)."""
+    from kcftools_tpu_torch.native import bits_to_runs
+
+    (pres, vb, ws, wh), _ = scan_rows_operands(dev, seed, rows)
+    n = SCAN_ROWS_N
+    vb_host = vb.cpu().numpy()
+    streams = []
+    for row in pres.cpu().numpy():
+        d, ln, n_runs = bits_to_runs(row, vb_host, n, n // 16)
+        if n_runs < 0:
+            fail("run streams: the encoder overflowed its scratch")
+        streams.append((d, ln, n_runs))
+    R = max(4096, -(-2 * max(s[2] for s in streams) // 4096) * 4096)
+    dl = np.zeros((rows, 2, R), np.uint8)
+    for r, (d, ln, _n) in enumerate(streams):
+        dl[r, 0], dl[r, 1] = d[:R], ln[:R]
+    args = [torch.from_numpy(dl).to(dev), vb, ws, wh]
+    nbytes = 2 * rows * R + n // 8 + (16 + 40 * rows) * ws.numel()
+    return args, nbytes, nbytes + 2 * rows * n // 8
 
 
 def _scan_exact(name, fn, ref, args, kw, what):
@@ -392,20 +442,18 @@ def _scan_exact(name, fn, ref, args, kw, what):
     return err
 
 
-def check_scan(dev, seed):
-    """The scan kernel in both modes bit-exact against its plain version
-    on the edge cases of tests/torch_gapscan_cases.py and at the main
-    shapes, then timed there: kernel, plain version and the bound (each
-    input byte read once, each output written once, at
-    HBM_BYTES_PER_S). No single PyTorch call computes the scan, so
-    library_ms is null."""
+def _scan_edges(dev, seed, modes):
+    """Every mode on the edge cases of tests/torch_gapscan_cases.py;
+    returns how many."""
     from kcftools_tpu_torch.ops import gapscan
-    from tests.torch_gapscan_cases import bits, join_case, rows_case
+    from tests.torch_gapscan_cases import (
+        bits,
+        join_case,
+        rows_case,
+        runs_case,
+        slabs_case,
+    )
 
-    modes = {
-        "gapscan_join": (gapscan.slab_scan_join, gapscan.slab_scan_join_ref),
-        "gapscan_rows": (gapscan.rows_scan, gapscan.rows_scan_ref),
-    }
     n_edge = 0
     for mc in (1, 3):
         for case in (seed, seed + 1):
@@ -413,38 +461,109 @@ def check_scan(dev, seed):
                                                         inverted=True)
             args = _on(dev, routed.view(np.int32), slot_map, bits(valid),
                        ws, wh)
-            _scan_exact("gapscan_join", *modes["gapscan_join"], args,
+            _scan_exact("gapscan_join", gapscan.slab_scan_join,
+                        gapscan.slab_scan_join_ref, args,
                         {"k": K, "min_count": mc}, f"edge case {case}")
-            n_edge += 1
+            routed, slot_maps, valid, ws, wh = slabs_case(case, mc,
+                                                          inverted=True)
+            args = _on(dev, routed.view(np.int32), slot_maps, bits(valid),
+                       ws, wh)
+            _scan_exact("gapscan_join", *modes["gapscan_join"], args,
+                        {"k": K, "min_count": mc}, f"slabs case {case}")
+            n_edge += 2
     for k in (17, 31, 45):
         pr, valid, ws, wh = rows_case(seed + k, k, inverted=True)
         _scan_exact("gapscan_rows", *modes["gapscan_rows"],
                     _on(dev, bits(pr), bits(valid), ws, wh), {"k": k},
                     f"edge case k={k}")
-        n_edge += 1
-    rows = {}
-    main = {
-        "gapscan_join": (*scan_join_operands(dev, seed, 3),
-                         {"k": K, "min_count": 3}),
-        "gapscan_rows": (*scan_rows_operands(dev, seed, 3), {"k": K}),
+        dl, valid, ws, wh = runs_case(seed + k, k)
+        _scan_exact("gapscan_runs", *modes["gapscan_runs"],
+                    _on(dev, dl, bits(valid), ws, wh), {"k": k},
+                    f"edge case k={k}")
+        n_edge += 2
+    return n_edge
+
+
+def _time_scan(name, fn, ref, args, kw, nbytes, floor_bytes=None,
+               floor="sector"):
+    """Bit-exact check, then kernel and plain ms from CUDA events beside
+    the bound (and the sector or design floor)."""
+    shape = ("x".join(map(str, args[1].shape)) if name == "gapscan_join"
+             else f"{args[0].shape[0]} rows x {8 * args[1].shape[-1]}")
+    what = f"{shape} positions, {args[-1].shape[-1]} windows"
+    err = _scan_exact(name, fn, ref, args, kw, what)
+    for _ in range(3):
+        fn(*args, **kw)
+    ms = _event_ms(lambda: fn(*args, **kw), 20)
+    row = {"max_abs_err": err, "ms": ms, "what": what,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None}
+    row["bound_share"] = row["bound_ms"] / ms
+    if floor_bytes is not None:
+        row[f"{floor}_floor_ms"] = floor_bytes / HBM_BYTES_PER_S * 1e3
+        row[f"{floor}_floor_share"] = row[f"{floor}_floor_ms"] / ms
+    return row
+
+
+def check_scan(dev, seed):
+    """The scan kernel in its three modes bit-exact against its plain
+    version on the edge cases and at the main shapes, then timed there:
+    kernel, plain version and the bound (each input byte read once, each
+    output written once, at HBM_BYTES_PER_S); the JOIN mode also beside
+    its sector floor and at the main path's own slabs (MAIN_SLABS x
+    MAIN_SLAB_POS positions, one launch), the RUNS mode beside its design
+    floor. No single PyTorch call computes the scan, so library_ms is
+    null."""
+    from kcftools_tpu_torch.ops import gapscan
+
+    modes = {
+        "gapscan_join": (gapscan.slabs_scan_join,
+                         gapscan.slabs_scan_join_ref),
+        "gapscan_rows": (gapscan.rows_scan, gapscan.rows_scan_ref),
+        "gapscan_runs": (gapscan.runs_scan, gapscan.runs_scan_ref),
     }
-    for name, (args, nbytes, kw) in main.items():
-        fn, ref = modes[name]
-        shape = (f"n={8 * args[-3].numel()} rows="
-                 f"{args[0].shape[0] if name == 'gapscan_rows' else 1} "
-                 f"windows={args[-1].numel()}")
-        err = _scan_exact(name, fn, ref, args, kw, shape)
-        for _ in range(3):
-            fn(*args, **kw)
-        ms = _event_ms(lambda: fn(*args, **kw), 20)
-        plain_ms = _event_ms(lambda: ref(*args, **kw), 1)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"{name}: exact on {n_edge} edge cases and at {shape} (max_abs_err"
-            f" {err}); kernel {ms} ms, plain {plain_ms} ms; bound {bound_ms} "
-            f"ms ({nbytes} bytes), share {bound_ms / ms}")
-        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": "bytes",
-                      "bound_share": bound_ms / ms, "library_ms": None}
+    n_edge = _scan_edges(dev, seed, modes)
+    jkw = {"k": K, "min_count": 3}
+    rows = {}
+    args, nbytes, floor = scan_join_operands(dev, seed, 3)
+    row = _time_scan("gapscan_join", *modes["gapscan_join"], args, jkw,
+                     nbytes, floor)
+    row["plain_ms"] = _event_ms(lambda: modes["gapscan_join"][1](*args,
+                                                                 **jkw), 1)
+    del args
+    args, m_bytes, m_floor = scan_join_operands(
+        dev, seed + 1, 3, MAIN_SLABS, MAIN_SLAB_POS, MAIN_SLAB_SPAN)
+    main = _time_scan("gapscan_join", *modes["gapscan_join"], args, jkw,
+                      m_bytes, m_floor)
+    row["main_slabs"] = {f: main[f] for f in ("what", "ms", "bound_ms",
+                                              "sector_floor_ms")}
+    rows["gapscan_join"] = row
+    del args
+    torch.cuda.empty_cache()
+    for name, make in (("gapscan_rows", scan_rows_operands),
+                       ("gapscan_runs", scan_runs_operands)):
+        args, nbytes, *design = make(dev, seed, 3)
+        row = _time_scan(name, *modes[name], args, {"k": K}, nbytes,
+                         *design, floor="design")
+        row["plain_ms"] = _event_ms(lambda: modes[name][1](*args, k=K), 1)
+        rows[name] = row
+        del args
+        torch.cuda.empty_cache()
+    for name, row in rows.items():
+        extra = ""
+        if "sector_floor_ms" in row:
+            extra = (f"; sector floor {row['sector_floor_ms']} ms (share "
+                     f"{row['sector_floor_share']}); main path's slabs "
+                     f"{json.dumps(row['main_slabs'])}")
+        if "design_floor_ms" in row:
+            extra = (f"; design floor (decoded bitmaps written and read "
+                     f"back) {row['design_floor_ms']} ms (share "
+                     f"{row['design_floor_share']})")
+        log(f"{name}: exact on {n_edge} edge cases and at {row['what']} "
+            f"(max_abs_err {row['max_abs_err']}); kernel {row['ms']} ms, "
+            f"plain {row['plain_ms']} ms; bound {row['bound_ms']} ms, share "
+            f"{row['bound_share']}{extra}")
+        del row["what"]
     return rows
 
 
@@ -622,10 +741,10 @@ def run_slice(root, ref, dbs, chrom_len):
         if run_launches["pjoin_packed"] + run_launches["pjoin_u32"] != len(dbs):
             fail(f"{run_launches} join launches for {len(dbs)} samples, "
                  "want one per sample")
-        if run_launches["gapscan_join"] != n_slabs * len(dbs):
+        if run_launches["gapscan_join"] != len(dbs):
             fail(f"{run_launches['gapscan_join']} scan launches for "
-                 f"{len(dbs)} samples of {n_slabs} slabs, want one per slab "
-                 "and sample")
+                 f"{len(dbs)} samples of {n_slabs} slabs, want one per "
+                 "sample")
     check_same(cold_kcf, host_kcf, n_win, "device engine, cold")
     check_same(dev_kcf, host_kcf, n_win, "device engine")
     if "jax" in sys.modules:
@@ -697,7 +816,7 @@ def _calls():
     return (tdp._score_runs, tdp._score_batch, table_lookup)
 
 
-_SCANS = ("gapscan_join", "gapscan_rows")
+_SCANS = ("gapscan_join", "gapscan_rows", "gapscan_runs")
 
 
 def _zero_calls():
@@ -720,11 +839,14 @@ def _need(calls, name, what):
 
 def _need_scan(calls, what):
     """A dprefix run: every program call launched the scan kernel once,
-    for all the rows of its group."""
-    programs = calls["score_runs"] + calls["score_batch"]
-    if programs == 0 or calls["gapscan_rows"] != programs:
-        fail(f"{what}: {calls['gapscan_rows']} scan launches for {programs} "
-             f"dprefix program calls on the card ({calls})")
+    for all the rows of its group (the run program through ``runs_scan``,
+    the bitmap program through ``rows_scan``)."""
+    if (calls["score_runs"] + calls["score_batch"] == 0
+            or calls["gapscan_runs"] != calls["score_runs"]
+            or calls["gapscan_rows"] != calls["score_batch"]):
+        fail(f"{what}: scan launches (runs_scan {calls['gapscan_runs']}, "
+             f"rows_scan {calls['gapscan_rows']}) differ from the dprefix "
+             f"program calls on the card ({calls})")
 
 
 def run_engines(root, ref, dbs, chrom_len, host_kcf, seed):
@@ -865,7 +987,7 @@ def _mesh_join(ref, dbs, env):
         DeviceJoinScorer,
         MeshJoinScorer,
     )
-    from kcftools_tpu_torch.ops.gapscan import slab_scan_join
+    from kcftools_tpu_torch.ops.gapscan import slabs_scan_join
     from kcftools_tpu_torch.ops.pjoin import pjoin_join
     from kcftools_tpu_torch.parallel.mesh import make_mesh
     from kcftools_tpu_torch.torchinit import resolve_devices
@@ -893,17 +1015,21 @@ def _mesh_join(ref, dbs, env):
                                           WINDOW, K)
             sc.add_chrom(chrom, refidx.chrom_r_idx[chrom], starts, ends)
         before = pjoin_join.launches_packed + pjoin_join.launches_u32
-        scans = slab_scan_join.launches
+        scans = slabs_scan_join.launches
         t0 = time.perf_counter()
         for key, (keys, counts) in enumerate(tables):
             sc.submit(key, refidx.kmers, keys, counts)
         res[name] = [sc.collect(key) for key in range(len(tables))]
         torch.cuda.synchronize()
         secs[name] = time.perf_counter() - t0
-        scans = slab_scan_join.launches - scans
-        if scans != len(sc._layout.slabs) * len(tables):
+        scans = slabs_scan_join.launches - scans
+        # one launch per sample on one device, per data row with slabs on
+        # the mesh
+        rows = (1 if name == "single"
+                else sum(len(st) > 0 for _dev, st in sc._statics))
+        if scans != rows * len(tables):
             fail(f"{name} join: {scans} scan launches for {len(tables)} "
-                 f"samples of {len(sc._layout.slabs)} slabs, want one each")
+                 f"samples over {rows} device row(s), want one each")
         if name == "mesh":
             launches = (pjoin_join.launches_packed + pjoin_join.launches_u32
                         - before)
@@ -1053,8 +1179,10 @@ def main():
         launches, host_kcf = run_slice(root, ref, dbs, chrom_len)
         calls5, feature_kcf = run_engines(root, ref, dbs, chrom_len,
                                           host_kcf, args.seed)
-        # the ROWS mode's path is the dprefix engine's warm window run
-        launches["gapscan_rows"] = calls5["dprefix"]["gapscan_rows"]
+        # the RUNS mode's path is the dprefix engine's warm window run,
+        # the ROWS mode's its -p 2500 bitmap run
+        launches["gapscan_runs"] = calls5["dprefix"]["gapscan_runs"]
+        launches["gapscan_rows"] = calls5["dprefix_slide"]["gapscan_rows"]
         run_mesh(root, ref, dbs, chrom_len, host_kcf, feature_kcf["gene"],
                  smi)
     finally:

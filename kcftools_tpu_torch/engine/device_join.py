@@ -13,24 +13,26 @@ engine behind ``getVariations --engine device`` at k <= 32.
       [hi | lo | counts] buffer by the shared native packer (counts
       byte-packed 4 per word when all are <= 255);
     - ONE host-to-device copy of that buffer, ONE ``pjoin_join`` launch;
-    - per slab, in a Python loop, ONE ``slab_scan_join`` launch
-      (ops/gapscan.py, the kernel csrc/gapscan.cu): gather through the
-      slot map, presence test, the gap-run statistics and the count
-      sums, into one (S, 6, win_pad) int64 device tensor;
+    - ONE ``slabs_scan_join`` launch over every slab (ops/gapscan.py,
+      the kernel csrc/gapscan.cu; the slabs' statics are stacked): gather
+      through each slab's slot map, presence test, the gap-run
+      statistics and the count sums, into one (S, 6, win_pad) int64
+      device tensor;
     - ``collect`` makes the one device-to-host copy.
 
 Dropped from the JAX engine because they were TPU-only: the fused and
 split per-sample programs (``_FUSE_MAX_POS``, ``_get_split_fns``) -
-eager torch runs the join and the scans as separate launches anyway;
-``lax.map`` over slabs - a Python loop of one scan launch per slab; the
+eager torch runs the join and the scan as two launches anyway;
+``lax.map`` over slabs - the scan kernel takes the slab as its row; the
 two-plane uint32 and float64 count sums - the scan sums in int64,
-exactly. The slab size keeps its environment
-names (``KCFTOOLS_DJOIN_SLAB``, then ``KCFTOOLS_DPREFIX_SLAB``) and its
-2^24 default, which still has to be re-measured on the H100.
+exactly. The slab size keeps its environment names
+(``KCFTOOLS_DJOIN_SLAB``, then ``KCFTOOLS_DPREFIX_SLAB``) and its 2^24
+default, which still has to be re-measured on the H100.
 
 ``MeshJoinScorer`` runs the same engine over a (data, table) mesh
 (parallel/mesh.py): one join per table shard, the routed counts
-gathered in table order, each data row scanning its own slabs.
+gathered in table order, each data row scanning its own slabs in one
+launch.
 
 With ``KCFTOOLS_STAGE_JSON`` set, the per-sample phases are timed as
 the stages djoin_pack, djoin_upload, djoin_join, djoin_scan and
@@ -47,13 +49,12 @@ import torch
 from ..native import get_lib
 from ..utils.logger import Logger
 from .encode import split_hi_lo
-from ..ops.gapscan import slab_scan_join
+from ..ops.gapscan import slabs_scan_join
 from ..ops.pjoin import (
     _round_up,
     as_i32,
     pjoin_join,
     quantile_partition_ids,
-    raw_quantile_ids,
     tile_sorted,
 )
 from ..parallel.mesh import all_gather_columns
@@ -62,6 +63,35 @@ from .device_prefix import _FIELDS, _Layout, _phase
 _CLASS = "DeviceJoin"
 
 _JFIELDS = _FIELDS + ("count_sum",)
+
+
+class _Slabs:
+    """The scan's statics of some slabs, stacked on one device: slot maps
+    (S, pos_pad) int32, valid bitmaps (S, pos_pad/8) uint8, window bounds
+    (S, win_pad) int64 each. ``len`` is the slab count."""
+
+    __slots__ = ("slot_maps", "valid_bits", "w_start", "w_hi")
+
+    def __init__(self, slabs, slot_of_ord, pos_pad, win_pad, dev):
+        S = len(slabs)
+        slot_maps = np.zeros((S, pos_pad), np.int32)
+        vbits = np.zeros((S, pos_pad // 8), np.uint8)
+        ws = np.zeros((S, win_pad), np.int64)
+        wh = np.zeros((S, win_pad), np.int64)
+        for si, slab in enumerate(slabs):
+            r_idx = slab["r_idx"]
+            live = r_idx >= 0
+            slot_maps[si, live] = slot_of_ord[r_idx[live]]
+            packed = np.packbits(live, bitorder="little")
+            vbits[si, : packed.shape[0]] = packed
+            ws[si] = slab["w_start"]
+            wh[si] = slab["w_hi"]
+        self.slot_maps, self.valid_bits, self.w_start, self.w_hi = (
+            torch.from_numpy(a).to(dev) for a in (slot_maps, vbits, ws, wh)
+        )
+
+    def __len__(self):
+        return self.slot_maps.shape[0]
 
 
 class DeviceJoinScorer:
@@ -127,44 +157,22 @@ class DeviceJoinScorer:
         )
 
         self._layout.finalize()
-        self._statics = [
-            self._slab_statics(slab, slot_of_ord, self.device)
-            for slab in self._layout.slabs
-        ]
-
-    def _slab_statics(self, slab, slot_of_ord, dev):
-        """One slab's (slot map, valid bitmap, w_start, w_hi) on dev."""
-        r_idx = slab["r_idx"]
-        live = r_idx >= 0
-        slot_map = np.zeros(self._layout.pos_pad, np.int32)
-        slot_map[live] = slot_of_ord[r_idx[live]]
-        vbits = np.zeros(self._layout.pos_pad // 8, np.uint8)
-        packed = np.packbits(live, bitorder="little")
-        vbits[: packed.shape[0]] = packed
-        return tuple(
-            torch.from_numpy(a).to(dev)
-            for a in (
-                slot_map, vbits, slab["w_start"].astype(np.int64),
-                slab["w_hi"].astype(np.int64),
-            )
-        )
+        self._statics = _Slabs(self._layout.slabs, slot_of_ord,
+                               self._layout.pos_pad, self._layout.win_pad,
+                               self.device)
 
     # -- per-sample ------------------------------------------------------
 
     def _pack_tiles(self, db_keys, db_counts):
         """One flat uint32 buffer [hi | lo | counts] in the sample's
         sticky (P, Tt) tiling. Counts <= 255 byte-pack 4 per word in
-        the planar layout. The native packer is used unless the table's
-        last key falls one past the last partition (its top 32 bits all
-        set), which the native partition function does not clamp."""
+        the planar layout, by the native packer where the library is
+        built (its partition function clamps to P-1, as
+        ``quantile_partition_ids`` does), else by numpy."""
         db_keys = np.ascontiguousarray(db_keys, np.uint64)
         n = db_keys.shape[0]
         b = self.P.bit_length() - 1
         lib = get_lib()
-        if lib is not None and n and raw_quantile_ids(
-            db_keys[-1:], b, self.k
-        )[0] >= self.P:
-            lib = None
         u64p = ctypes.POINTER(ctypes.c_uint64)
         i64p = ctypes.POINTER(ctypes.c_int64)
         if lib is not None:
@@ -243,15 +251,14 @@ class DeviceJoinScorer:
             self._handles[key] = self._scan_slabs(flat, self._statics)
 
     def _scan_slabs(self, flat, statics):
-        """(len(statics), 6, win_pad) int64 stats of the given slabs."""
-        res = torch.empty(
-            (len(statics), len(_JFIELDS), self._layout.win_pad),
-            dtype=torch.int64, device=flat.device,
-        )
-        for si, (sm, vb, ws, wh) in enumerate(statics):
-            res[si] = slab_scan_join(flat, sm, vb, ws, wh, k=self.k,
-                                     min_count=self.min_count)
-        return res
+        """(len(statics), 6, win_pad) int64 stats of the given slabs, in
+        one launch."""
+        if not len(statics):
+            return torch.empty((0, len(_JFIELDS), self._layout.win_pad),
+                               dtype=torch.int64, device=flat.device)
+        return slabs_scan_join(flat, statics.slot_maps, statics.valid_bits,
+                               statics.w_start, statics.w_hi, k=self.k,
+                               min_count=self.min_count)
 
     def _fetch(self, handle):
         """A sample's (S, 6, win_pad) result on the host."""
@@ -353,14 +360,13 @@ class MeshJoinScorer(DeviceJoinScorer):
         self._layout.finalize(n_parts=self.d_axis)
         slabs = self._layout.slabs
         per = -(-max(len(slabs), 1) // self.d_axis)
-        # data row -> (device, statics of its slabs)
+        # data row -> (device, stacked statics of its slabs)
         self._statics = []
         for di in range(self.d_axis):
             dev = mesh.row_device(di)
-            self._statics.append((dev, [
-                self._slab_statics(slab, slot_of_ord, dev)
-                for slab in slabs[di * per : (di + 1) * per]
-            ]))
+            self._statics.append((dev, _Slabs(
+                slabs[di * per : (di + 1) * per], slot_of_ord,
+                self._layout.pos_pad, self._layout.win_pad, dev)))
 
     def submit(self, key, ref_keys, db_keys, db_counts):
         self._finalize()

@@ -5,7 +5,7 @@ Port of kcftools_tpu/engine/device_prefix.py, the engine behind
 the host owns the per-sample merge join and the positional pack (the
 shared native tier), the device owns the scan-shaped work - the
 per-window gap-run state machine of Plugins/GetVariants.java:219-273
-(``ops/gapscan.py::rows_scan``).
+(``ops/gapscan.py``: ``runs_scan``, ``rows_scan``).
 
 Per sample the host packs, for every slab, either a presence bitmap or
 the compact absent-run stream of it (native ``kcf_bits_to_runs``; see
@@ -15,12 +15,12 @@ uploaded as one (S, ...) uint8 tensor per slab and scored by one call of
 ``_score_batch`` (the bitmaps). The chromosomes are cut into
 window-aligned slabs (``_Layout``), so no window straddles a slab.
 
-Every row of a group goes through one ``rows_scan`` per slab and pool
-slot: on the card one launch of the kernel csrc/gapscan.cu, on the CPU
-its plain torch version. Its sums are int64, so the inner-distance sum
-is exact where the JAX version keeps a uint32 modular prefix. The run
-program decodes the group's absent runs with torch ops, all rows at
-once, into presence bitmaps for the scan.
+Every row of a group goes through one ``runs_scan`` (the run program)
+or ``rows_scan`` (the bitmap program) per slab and pool slot: on the
+card one launch of the kernel csrc/gapscan.cu, whose run front end
+decodes the group's absent runs itself, on the CPU its plain torch
+version. Its sums are int64, so the inner-distance sum is exact where
+the JAX version keeps a uint32 modular prefix.
 
 Over several devices (``devices=``, a list of mesh slots) the genome's
 slabs spread across the slots; with more slots than slabs each slab gets
@@ -53,7 +53,13 @@ from ..native import (
     ordpack,
     pack_posbits,
 )
-from ..ops.gapscan import _unpack_bits, rows_scan
+# _pack_bits and _runs_presence stay importable from here
+from ..ops.gapscan import (  # noqa: F401
+    _pack_bits,
+    _runs_presence,
+    rows_scan,
+    runs_scan,
+)
 from ..utils import stagetimer
 from ..torchinit import Slot, process_index, sync_devices
 
@@ -107,61 +113,14 @@ def _score_batch(mat, valid_bits, w_start, w_hi, *, k: int):
     return rows_scan(mat, valid_bits, w_start, w_hi, k=k)
 
 
-def _runs_presence(dl, valid):
-    """Presence over n positions from ABSENT-RUN payloads (native
-    kcf_bits_to_runs encoding: delta u8 from the previous run's end with
-    (255, 0) fillers, length u8 with (0, 255) continuations, zero-padded
-    with (0, 0)). dl: (..., 2, run_cap) uint8, one payload per row;
-    valid: (n,) bool. Returns (..., n) bool.
-
-    Absent stretches are disjoint, so +1 at each run's start, -1 at its
-    end and one prefix sum give 1 exactly inside a run. Empty entries
-    (fillers and padding) add +1 and -1 at one position and are sent to
-    a discarded position n instead, so no position below n takes more
-    than one +1 and one -1 and the int8 prefix stays in {0, 1}; starts
-    and ends at or past n (a trailing run that ends at n) go there too.
-    Positions the encoding trims or skips are invalid and masked by
-    ``valid``, so the result is exact. No step waits for the host (no
-    boolean-mask indexing), so the scans of several devices overlap."""
-    n = valid.shape[0]
-    lead = dl.shape[:-2]
-    dl = dl.reshape(-1, 2, dl.shape[-1])
-    d = dl[:, 0].long()
-    ln = dl[:, 1].long()
-    ends = torch.cumsum(d + ln, 1)
-    starts = ends - ln
-    rows = torch.arange(dl.shape[0], device=valid.device)[:, None]
-    rows = rows.expand(ends.shape)
-    delta = torch.zeros((dl.shape[0], n + 1), dtype=torch.int8,
-                        device=valid.device)
-    for idx, v in ((starts, 1), (ends, -1)):
-        idx = torch.where((ln > 0) & (idx < n), idx, n)
-        delta.index_put_(
-            (rows, idx), torch.full(idx.shape, v, dtype=torch.int8,
-                                    device=idx.device),
-            accumulate=True,
-        )
-    absent = torch.cumsum(delta[:, :n], 1, dtype=torch.int8) > 0
-    return (~absent & valid).reshape(*lead, n)
-
-
-def _pack_bits(pr):
-    """(S, n) bool -> (S, n/8) uint8 LSB-first bitmaps."""
-    weights = torch.tensor([1 << b for b in range(8)], dtype=torch.uint8,
-                           device=pr.device)
-    b8 = pr.view(pr.shape[0], -1, 8).to(torch.uint8).mul_(weights)
-    return b8.sum(-1, dtype=torch.uint8)
-
-
 def _score_runs(dl, valid_bits, w_start, w_hi, *, k: int):
     """Score S samples over one slab from compact ABSENT-RUN payloads.
-    dl: (S, 2, run_cap) uint8 (see ``_runs_presence``), decoded for all
-    rows at once into presence bitmaps for one ``rows_scan``. Returns
-    (5, S, win_pad) int64. ``_score_runs.cuda_calls`` counts its calls
-    on a CUDA device."""
+    dl: (S, 2, run_cap) uint8 (see ``ops/gapscan.py::_runs_presence``),
+    decoded and scanned for all rows at once by one ``runs_scan``.
+    Returns (5, S, win_pad) int64. ``_score_runs.cuda_calls`` counts its
+    calls on a CUDA device."""
     _count_cuda_call(_score_runs, dl)
-    pr = _runs_presence(dl, _unpack_bits(valid_bits))
-    return rows_scan(_pack_bits(pr), valid_bits, w_start, w_hi, k=k)
+    return runs_scan(dl, valid_bits, w_start, w_hi, k=k)
 
 
 _score_batch.cuda_calls = 0
@@ -292,12 +251,9 @@ class _Layout:
                 wins.append((seg["chrom"], seg["c_off"], w_off, nw))
                 p_off += _round_up(sl, _SEG_ALIGN)
                 w_off += nw
-            cs_tot = np.zeros(pos_pad + 1, np.int32)
-            np.cumsum(r_idx >= 0, out=cs_tot[1:])
             self.slabs.append(
                 {
                     "r_idx": r_idx,
-                    "cs_tot": cs_tot,
                     "w_start": w_start,
                     "w_hi": w_hi,
                     "n_win": w_off,

@@ -1627,10 +1627,15 @@ extern "C" void kcf_refsim_scan(
 // (partition ids are monotone over sorted keys, so writes stream).
 // kcf_pjoin_hist fills the per-partition histogram so the caller can
 // size the tile first; counts byte-pack 4-per-word when packed_u8.
+// A key whose top 32 bits are all set (the k = 32 palindrome T^16A^16)
+// would land one past the last partition: clamped to P - 1, as
+// quantile_partition_ids clamps.
 static inline int64_t pjoin_part(uint64_t key, int k, int b) {
   uint64_t x = (key << (64 - 2 * k)) >> 32;
   uint64_t F = (x << 32) - ((x * x) >> 1);
-  return (int64_t)(F >> (63 - b));
+  int64_t part = (int64_t)(F >> (63 - b));
+  int64_t last = ((int64_t)1 << b) - 1;
+  return part < last ? part : last;
 }
 
 extern "C" void kcf_pjoin_hist(const uint64_t* keys, int64_t n, int k,

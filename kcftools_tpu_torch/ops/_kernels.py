@@ -112,37 +112,31 @@ def launch_pjoin(qh, ql, th, tl, tc, out, P, Tq, Tt, packed):
         raise RuntimeError(f"pjoin kernel launch failed: CUDA error {rc}")
 
 
-def _gapscan_lib():
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+# entry point of csrc/gapscan.cu -> its argument types (tensors, then ints,
+# then the stream)
+_GAPSCAN = {
+    "kcf_gapscan_join": [_P, _LL, *[_P] * 8, _LL, _I, _I, _I, _LL, _P],
+    "kcf_gapscan_rows": [*[_P] * 6, _LL, _I, _I, _I, _P],
+    "kcf_gapscan_runs": [_P, _LL, *[_P] * 7, _LL, _I, _I, _I, _P],
+}
+
+
+def launch_gapscan(entry, *args):
+    """Call one entry point of csrc/gapscan.cu on the current stream of
+    the last tensor argument's device (the output). Tensors pass as their
+    pointers, None as a null pointer; the stream is appended. Operands are
+    checked by the caller (ops/gapscan.py)."""
     lib = load("gapscan")
-    fn = lib.kcf_gapscan_launch
+    fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        *[ctypes.c_void_p] * 6, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-    ]
-    return fn
-
-
-def launch_gapscan(presence, routed, slot_map, valid_bits, w_start, w_hi,
-                   chunks, out, n, S, k, min_count):
-    """Launch csrc/gapscan.cu (both passes) on the current stream of
-    ``out``'s device: the ROWS mode with ``presence``, else the JOIN mode
-    with ``routed`` and ``slot_map``. Operands are checked by the caller
-    (ops/gapscan.py)."""
-    fn = _gapscan_lib()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    fn.argtypes = _GAPSCAN[entry]
+    out = [a for a in args if isinstance(a, torch.Tensor)][-1]
+    vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = fn(
-            ptr(presence), ptr(routed),
-            0 if routed is None else routed.numel(), ptr(slot_map),
-            valid_bits.data_ptr(), w_start.data_ptr(), w_hi.data_ptr(),
-            chunks.data_ptr(), out.data_ptr(), n, S, w_start.numel(), k,
-            min_count, stream,
-        )
+        rc = fn(*vals, stream)
     if rc != 0:
-        raise RuntimeError(f"gapscan kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")

@@ -2,24 +2,28 @@
 versions.
 
 Port of kcftools_tpu/engine/device_prefix.py::_scan_core, the per-window
-gap-run state machine of Plugins/GetVariants.java:219-273, in the two
-forms its callers take:
+gap-run state machine of Plugins/GetVariants.java:219-273, in the forms
+its callers take:
 
-- ``slab_scan_join``: one slab of the device-join engine from the routed
-  join counts (kcftools_tpu/engine/device_join.py::_slab_scan): gather
-  through the slot map, unsigned presence test, the five statistics and
-  the count sums. (6, win_pad) int64.
-- ``rows_scan``: the S presence rows of a dprefix group over one slab
-  (device_prefix.py::_score_batch / _score_runs, vmapped there). (5, S,
+- ``slabs_scan_join``: every slab of one device-join sample from the
+  routed join counts (kcftools_tpu/engine/device_join.py::_slab_scan,
+  mapped over the slabs by ``_score_sample``): gather through each slab's
+  slot map, unsigned presence test, the five statistics and the count
+  sums. (S_slab, 6, win_pad) int64. ``slab_scan_join`` is the same for
+  one slab, (6, win_pad).
+- ``rows_scan``: the S presence bitmaps of a dprefix group over one slab
+  (device_prefix.py::_score_batch). (5, S, win_pad) int64.
+- ``runs_scan``: the S absent-run streams of a dprefix group over one
+  slab (device_prefix.py::_score_runs), decoded and scanned. (5, S,
   win_pad) int64.
 
 On CUDA tensors each launches the hand-written kernel ``csrc/gapscan.cu``
-(bound in ``_kernels.py``): chunk summaries, then one warp per window; on
-CPU tensors it takes its plain version, which is the torch-op scan the
-port ran before (``_scan_core``: cumsum, cummax, flipped cummin and
-boundary gathers; all prefix sums int64). A CUDA tensor never reaches the
-plain version. ``slab_scan_join.launches`` and ``rows_scan.launches``
-count the kernel's launches.
+(bound in ``_kernels.py``) once; on CPU tensors it takes its plain
+version, the torch-op scan (``_scan_core``: cumsum, cummax, flipped
+cummin and boundary gathers; all prefix sums int64) and, for the run
+streams, the torch-op decode (``_runs_presence``, ``_pack_bits``). A CUDA
+tensor never reaches a plain version. Each wrapper's ``.launches``
+counts its kernel's launches.
 
 Presence lies inside the valid bitmap on every path: the join's presence
 test includes it, the native packers (``kcf_pack_posbits``,
@@ -34,6 +38,8 @@ _FIELDS_JOIN = 6
 _FIELDS_ROWS = 5
 _CHUNK = 1024  # positions per chunk summary of the kernel
 _SUM_WORDS = 5  # int64 words per stored chunk summary (40 bytes)
+_RUN_SEG = 1024  # run entries per block of the kernel's run front end
+_MAX_ROWS = 65535  # rows of one runs_scan launch (the grid's y extent)
 
 
 def _cummin_rev(x):
@@ -94,12 +100,58 @@ def _unpack_bits(b8):
     return ((b8.int()[:, None] >> shifts) & 1).reshape(-1) != 0
 
 
+def _pack_bits(pr):
+    """(S, n) bool -> (S, n/8) uint8 LSB-first bitmaps."""
+    weights = torch.tensor([1 << b for b in range(8)], dtype=torch.uint8,
+                           device=pr.device)
+    b8 = pr.view(pr.shape[0], -1, 8).to(torch.uint8).mul_(weights)
+    return b8.sum(-1, dtype=torch.uint8)
+
+
 def _cs_tot(valid_bits):
     """(n+1,) int64 prefix counts of valid positions, from the packed
     (n/8,) uint8 valid bitmap."""
     bits = _unpack_bits(valid_bits)
     zero = torch.zeros(1, dtype=torch.int64, device=bits.device)
     return torch.cat([zero, torch.cumsum(bits, 0, dtype=torch.int64)])
+
+
+def _runs_presence(dl, valid):
+    """Presence over n positions from ABSENT-RUN payloads (native
+    kcf_bits_to_runs encoding: delta u8 from the previous run's end with
+    (255, 0) fillers, length u8 with (0, 255) continuations, zero-padded
+    with (0, 0)). dl: (..., 2, run_cap) uint8, one payload per row;
+    valid: (n,) bool. Returns (..., n) bool.
+
+    Absent stretches are disjoint, so +1 at each run's start, -1 at its
+    end and one prefix sum give 1 exactly inside a run. Empty entries
+    (fillers and padding) add +1 and -1 at one position and are sent to
+    a discarded position n instead, so no position below n takes more
+    than one +1 and one -1 and the int8 prefix stays in {0, 1}; starts
+    and ends at or past n (a trailing run that ends at n) go there too.
+    Positions the encoding trims or skips are invalid and masked by
+    ``valid``, so the result is exact. No step waits for the host (no
+    boolean-mask indexing), so the scans of several devices overlap."""
+    n = valid.shape[0]
+    lead = dl.shape[:-2]
+    dl = dl.reshape(-1, 2, dl.shape[-1])
+    d = dl[:, 0].long()
+    ln = dl[:, 1].long()
+    ends = torch.cumsum(d + ln, 1)
+    starts = ends - ln
+    rows = torch.arange(dl.shape[0], device=valid.device)[:, None]
+    rows = rows.expand(ends.shape)
+    delta = torch.zeros((dl.shape[0], n + 1), dtype=torch.int8,
+                        device=valid.device)
+    for idx, v in ((starts, 1), (ends, -1)):
+        idx = torch.where((ln > 0) & (idx < n), idx, n)
+        delta.index_put_(
+            (rows, idx), torch.full(idx.shape, v, dtype=torch.int8,
+                                    device=idx.device),
+            accumulate=True,
+        )
+    absent = torch.cumsum(delta[:, :n], 1, dtype=torch.int8) > 0
+    return (~absent & valid).reshape(*lead, n)
 
 
 def slab_scan_join_ref(routed_flat, slot_map, valid_bits, w_start, w_hi, *,
@@ -117,6 +169,18 @@ def slab_scan_join_ref(routed_flat, slot_map, valid_bits, w_start, w_hi, *,
     return torch.cat([five, count_sum[None, :]], dim=0)
 
 
+def slabs_scan_join_ref(routed_flat, slot_maps, valid_bits, w_starts, w_his,
+                        *, k: int, min_count: int):
+    """Plain version of ``slabs_scan_join``: the slabs one at a time."""
+    out = torch.empty((slot_maps.shape[0], _FIELDS_JOIN, w_starts.shape[1]),
+                      dtype=torch.int64, device=slot_maps.device)
+    for si in range(slot_maps.shape[0]):
+        out[si] = slab_scan_join_ref(routed_flat, slot_maps[si],
+                                     valid_bits[si], w_starts[si], w_his[si],
+                                     k=k, min_count=min_count)
+    return out
+
+
 def rows_scan_ref(presence, valid_bits, w_start, w_hi, *, k: int):
     """Plain version of ``rows_scan``: the rows scanned one at a time (a
     row's scan holds about a dozen slab-sized int64 temporaries)."""
@@ -129,9 +193,17 @@ def rows_scan_ref(presence, valid_bits, w_start, w_hi, *, k: int):
     return out
 
 
-def _check(what, valid_bits, w_start, w_hi, *others):
-    """Device, dtype, shape, contiguity and alignment of the operands;
-    returns n (positions)."""
+def runs_scan_ref(dl, valid_bits, w_start, w_hi, *, k: int):
+    """Plain version of ``runs_scan``: the streams decoded for all rows at
+    once (``_runs_presence``), packed (``_pack_bits``) and scanned
+    (``rows_scan_ref``)."""
+    pr = _runs_presence(dl, _unpack_bits(valid_bits))
+    return rows_scan_ref(_pack_bits(pr), valid_bits, w_start, w_hi, k=k)
+
+
+def _check(what, valid_bits, w_start, w_hi, *others, dims=1):
+    """Device, dtype, shape, contiguity and alignment of the operands
+    (bitmap and bounds of ``dims`` dimensions); returns n (positions)."""
     dev = valid_bits.device
     for t in (valid_bits, w_start, w_hi, *others):
         if t.device != dev:
@@ -140,37 +212,99 @@ def _check(what, valid_bits, w_start, w_hi, *others):
             raise ValueError(f"{what}: contiguous operands")
     for name, t in (("valid_bits", valid_bits), ("w_start", w_start),
                     ("w_hi", w_hi)):
-        if t.dim() != 1:
-            raise ValueError(f"{what}: {name} must be 1-D")
+        if t.dim() != dims:
+            raise ValueError(f"{what}: {name} must be {dims}-D")
     if valid_bits.dtype != torch.uint8:
         raise TypeError(f"{what}: uint8 valid_bits, got {valid_bits.dtype}")
     if w_start.dtype != torch.int64 or w_hi.dtype != torch.int64:
         raise TypeError(f"{what}: int64 window bounds")
     if w_start.shape != w_hi.shape:
         raise ValueError(f"{what}: w_start and w_hi differ in shape")
-    if valid_bits.numel() % 4:
+    nb = valid_bits.shape[-1]
+    if nb % 4:
         raise ValueError(f"{what}: the positions must be a multiple of 32")
     if dev.type == "cuda" and valid_bits.data_ptr() % 4:
         raise ValueError(f"{what}: valid_bits must be 4-byte aligned")
-    return 8 * valid_bits.numel()
+    return 8 * nb
 
 
-def _launch(wrapper, presence, routed, slot_map, valid_bits, w_start, w_hi,
-            n, S, fields, k, min_count):
-    """The kernel's output for the wrapper; counts the launch."""
+def _on_card(what, dev):
+    """True for a CUDA device, False for the CPU (the plain version);
+    raises for any other."""
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise RuntimeError(f"{what}: no kernel for device {dev}")
+    return True
+
+
+def _scratch(dev, *sizes):
+    """int64 scratch tensors of at least one element each."""
+    return [torch.empty(max(1, s), dtype=torch.int64, device=dev)
+            for s in sizes]
+
+
+def _n_chunks(n):
+    return -(-n // _CHUNK)
+
+
+def _join_kernel(wrapper, routed, slot_maps, valid_bits, w_starts, w_his, n,
+                 k, min_count):
+    """(S, 6, W) from one JOIN-mode launch; counts it on ``wrapper``."""
     from ._kernels import launch_gapscan
 
-    dev = valid_bits.device
-    out = torch.empty((fields, S, w_start.numel()), dtype=torch.int64,
-                      device=dev)
+    dev = routed.device
+    S, W = slot_maps.shape[0], w_starts.shape[1]
+    out = torch.empty((S, _FIELDS_JOIN, W), dtype=torch.int64, device=dev)
     if out.numel() == 0:
         return out
-    chunks = torch.empty(max(1, S * (-(-n // _CHUNK)) * _SUM_WORDS),
-                         dtype=torch.int64, device=dev)
-    launch_gapscan(presence, routed, slot_map, valid_bits, w_start, w_hi,
-                   chunks, out, n, S, int(k), int(min_count))
+    if slot_maps.data_ptr() % 16:
+        raise ValueError(f"{wrapper.__name__}: slot maps must be 16-byte "
+                         "aligned")
+    presence, wsum, chunks = _scratch(dev, S * n // 64, S * n // 32,
+                                      S * _n_chunks(n) * _SUM_WORDS)
+    launch_gapscan("kcf_gapscan_join", routed, routed.numel(), slot_maps,
+                   valid_bits, w_starts, w_his, presence, wsum, chunks, out,
+                   n, S, W, int(k), int(min_count))
     wrapper.launches += 1
     return out
+
+
+def _check_join(what, routed_flat, slot_map, valid_bits, w_start, w_hi,
+                dims):
+    n = _check(what, valid_bits, w_start, w_hi, routed_flat, slot_map,
+               dims=dims)
+    if routed_flat.dtype != torch.int32 or routed_flat.dim() != 1:
+        raise TypeError(f"{what}: routed_flat must be 1-D int32")
+    if slot_map.dtype != torch.int32 or slot_map.dim() != dims:
+        raise TypeError(f"{what}: slot maps must be {dims}-D int32")
+    if slot_map.shape[-1] != n:
+        raise ValueError(f"{what}: slot maps of {slot_map.shape[-1]} "
+                         f"positions, valid bitmaps of {n}")
+    if dims == 2 and not (slot_map.shape[0] == valid_bits.shape[0]
+                          == w_start.shape[0]):
+        raise ValueError(f"{what}: slot maps, valid bitmaps and window "
+                         "bounds differ in their slab count")
+    return n
+
+
+def slabs_scan_join(routed_flat, slot_maps, valid_bits, w_starts, w_his, *,
+                    k: int, min_count: int):
+    """The per-window stats of every slab of one sample from the routed
+    join counts, in one launch.
+
+    routed_flat: (R,) int32 (uint32 count bits); slot_maps: (S, n) int32,
+    each slab's routed slot of each position (read where valid);
+    valid_bits: (S, n/8) uint8 LSB-first, n a multiple of 32; w_starts,
+    w_his: (S, W) int64 inclusive window bounds. Returns (S, 6, W) int64:
+    observed, variations, inner, left, right, count_sum."""
+    n = _check_join("slabs_scan_join", routed_flat, slot_maps, valid_bits,
+                    w_starts, w_his, 2)
+    if not _on_card("slabs_scan_join", valid_bits.device):
+        return slabs_scan_join_ref(routed_flat, slot_maps, valid_bits,
+                                   w_starts, w_his, k=k, min_count=min_count)
+    return _join_kernel(slabs_scan_join, routed_flat, slot_maps, valid_bits,
+                        w_starts, w_his, n, k, min_count)
 
 
 def slab_scan_join(routed_flat, slot_map, valid_bits, w_start, w_hi, *,
@@ -182,22 +316,14 @@ def slab_scan_join(routed_flat, slot_map, valid_bits, w_start, w_hi, *,
     (n/8,) uint8 LSB-first, n a multiple of 32; w_start, w_hi: (W,)
     int64 inclusive window bounds. Returns (6, W) int64: observed,
     variations, inner, left, right, count_sum."""
-    n = _check("slab_scan_join", valid_bits, w_start, w_hi, routed_flat,
-               slot_map)
-    for name, t in (("routed_flat", routed_flat), ("slot_map", slot_map)):
-        if t.dtype != torch.int32 or t.dim() != 1:
-            raise TypeError(f"slab_scan_join: {name} must be 1-D int32")
-    if slot_map.numel() != n:
-        raise ValueError(f"slab_scan_join: slot_map has {slot_map.numel()} "
-                         f"positions, the valid bitmap {n}")
-    dev = valid_bits.device
-    if dev.type == "cpu":
+    n = _check_join("slab_scan_join", routed_flat, slot_map, valid_bits,
+                    w_start, w_hi, 1)
+    if not _on_card("slab_scan_join", valid_bits.device):
         return slab_scan_join_ref(routed_flat, slot_map, valid_bits, w_start,
                                   w_hi, k=k, min_count=min_count)
-    if dev.type != "cuda":
-        raise RuntimeError(f"slab_scan_join: no kernel for device {dev}")
-    return _launch(slab_scan_join, None, routed_flat, slot_map, valid_bits,
-                   w_start, w_hi, n, 1, _FIELDS_JOIN, k, min_count)[:, 0]
+    return _join_kernel(slab_scan_join, routed_flat, slot_map[None],
+                        valid_bits[None], w_start[None], w_hi[None], n, k,
+                        min_count)[0]
 
 
 def rows_scan(presence, valid_bits, w_start, w_hi, *, k: int):
@@ -207,6 +333,8 @@ def rows_scan(presence, valid_bits, w_start, w_hi, *, k: int):
     valid_bits: (n/8,) uint8, n a multiple of 32; w_start, w_hi: (W,)
     int64 inclusive window bounds. Returns (5, S, W) int64: observed,
     variations, inner, left, right."""
+    from ._kernels import launch_gapscan
+
     n = _check("rows_scan", valid_bits, w_start, w_hi, presence)
     if presence.dtype != torch.uint8 or presence.dim() != 2:
         raise TypeError("rows_scan: presence must be (S, n/8) uint8")
@@ -214,15 +342,54 @@ def rows_scan(presence, valid_bits, w_start, w_hi, *, k: int):
         raise ValueError(f"rows_scan: presence rows of {presence.shape[1]} "
                          f"bytes, valid bitmap of {valid_bits.numel()}")
     dev = valid_bits.device
-    if dev.type == "cpu":
+    if not _on_card("rows_scan", dev):
         return rows_scan_ref(presence, valid_bits, w_start, w_hi, k=k)
-    if dev.type != "cuda":
-        raise RuntimeError(f"rows_scan: no kernel for device {dev}")
     if presence.data_ptr() % 4:
         raise ValueError("rows_scan: presence must be 4-byte aligned")
-    return _launch(rows_scan, presence, None, None, valid_bits, w_start,
-                   w_hi, n, presence.shape[0], _FIELDS_ROWS, k, 0)
+    S, W = presence.shape[0], w_start.numel()
+    out = torch.empty((_FIELDS_ROWS, S, W), dtype=torch.int64, device=dev)
+    if out.numel() == 0:
+        return out
+    (chunks,) = _scratch(dev, S * _n_chunks(n) * _SUM_WORDS)
+    launch_gapscan("kcf_gapscan_rows", presence, valid_bits, w_start, w_hi,
+                   chunks, out, n, S, W, int(k))
+    rows_scan.launches += 1
+    return out
 
 
+def runs_scan(dl, valid_bits, w_start, w_hi, *, k: int):
+    """The window stats of S rows over one slab from their absent-run
+    streams.
+
+    dl: (S, 2, run_cap) uint8 in the native ``kcf_bits_to_runs``
+    encoding (see ``_runs_presence``); valid_bits: (n/8,) uint8, n a
+    multiple of 32; w_start, w_hi: (W,) int64 inclusive window bounds.
+    Returns (5, S, W) int64: observed, variations, inner, left, right.
+    On the card one launch decodes the streams into presence bitmaps (no
+    torch op touches the S x n rows) and scans them."""
+    from ._kernels import launch_gapscan
+
+    n = _check("runs_scan", valid_bits, w_start, w_hi, dl)
+    if dl.dtype != torch.uint8 or dl.dim() != 3 or dl.shape[1] != 2:
+        raise TypeError("runs_scan: dl must be (S, 2, run_cap) uint8")
+    dev = valid_bits.device
+    if not _on_card("runs_scan", dev):
+        return runs_scan_ref(dl, valid_bits, w_start, w_hi, k=k)
+    S, R, W = dl.shape[0], dl.shape[2], w_start.numel()
+    if S > _MAX_ROWS:
+        raise ValueError(f"runs_scan: {S} rows, at most {_MAX_ROWS}")
+    out = torch.empty((_FIELDS_ROWS, S, W), dtype=torch.int64, device=dev)
+    if out.numel() == 0:
+        return out
+    seg, presence, chunks = _scratch(dev, S * -(-R // _RUN_SEG), S * n // 64,
+                                     S * _n_chunks(n) * _SUM_WORDS)
+    launch_gapscan("kcf_gapscan_runs", dl, R, valid_bits, w_start, w_hi, seg,
+                   presence, chunks, out, n, S, W, int(k))
+    runs_scan.launches += 1
+    return out
+
+
+slabs_scan_join.launches = 0
 slab_scan_join.launches = 0
 rows_scan.launches = 0
+runs_scan.launches = 0

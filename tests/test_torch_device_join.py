@@ -7,6 +7,8 @@ inner, left, right and count_sum are integers, so every comparison is
 exact.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -223,9 +225,8 @@ def test_device_join_wide_window_count_sum():
 def test_device_join_top_partition_key():
     """The k=32 palindrome T^16A^16 (all top-32 bits set) in both the
     reference and the sample: the last key of the sorted table. The
-    port clamps it into the last partition and packs that sample
-    without the native packer (checked against the oracle; the JAX
-    package raises on this key)."""
+    port clamps it into the last partition, in the native packer too
+    (checked against the oracle; the JAX package raises on this key)."""
     rng = np.random.default_rng(32)
     k = 32
     genome, valid = _genome(rng, 20_000, n_rate=0.0)
@@ -244,3 +245,49 @@ def test_device_join_top_partition_key():
     port.submit(0, refk, db, dbc)
     res = port.collect(0)["c"]
     _assert_oracle(res, genome, valid, starts, ends, k, db, dbc)
+
+
+@pytest.mark.parametrize("k", [31, 32])
+@pytest.mark.parametrize("packed", [False, True], ids=["u32", "packed"])
+def test_native_pjoin_pack_clamps_top_keys(monkeypatch, k, packed):
+    """The native kcf_pjoin_hist / kcf_pjoin_pack put keys whose top 32
+    bits are all set (at k = 32 the palindrome T^16A^16 among them) into
+    the last partition, as ``quantile_partition_ids`` does: histogram and
+    upload buffer equal the numpy path's."""
+    from kcftools_tpu_torch.engine import device_join as tdj
+    from kcftools_tpu_torch.native import get_lib
+    from kcftools_tpu_torch.ops.pjoin import (
+        quantile_partition_ids,
+        raw_quantile_ids,
+    )
+
+    lib = get_lib()
+    assert lib is not None
+    rng = np.random.default_rng(k)
+    top = ((1 << 32) - 1) << (2 * k - 32)  # the key's top 32 bits set
+    keys = np.unique(np.concatenate([
+        rng.integers(0, 1 << (2 * k), 5000, dtype=np.uint64),
+        np.array([top, top + 1, top + 77, (1 << (2 * k)) - 1], np.uint64),
+    ]))
+    counts = rng.integers(1, 256 if packed else 1 << 32, keys.shape[0],
+                          dtype=np.uint64).astype(np.uint32)
+    b = 4
+    assert (raw_quantile_ids(keys, b, k) == 1 << b).sum() == 4
+    per = np.zeros(1 << b, np.int64)
+    lib.kcf_pjoin_hist(
+        keys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        ctypes.c_int64(keys.shape[0]), ctypes.c_int(k), ctypes.c_int(b),
+        per.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+    )
+    np.testing.assert_array_equal(
+        per, np.bincount(quantile_partition_ids(keys, b, k), minlength=1 << b))
+    bufs = []
+    for use_lib in (True, False):
+        sc = DeviceJoinScorer.__new__(DeviceJoinScorer)
+        sc.P, sc.k, sc._sample_tile = 1 << b, k, None
+        monkeypatch.setattr(tdj, "get_lib",
+                            (lambda: lib) if use_lib else (lambda: None))
+        bufs.append(sc._pack_tiles(keys, counts))
+    (got, tt, pk), (want, tt2, pk2) = bufs
+    assert (tt, pk) == (tt2, pk2) and pk == packed
+    np.testing.assert_array_equal(got, want)

@@ -7,11 +7,15 @@ one summary per chunk of positions, then per window the partial head
 chunk, the whole chunks' summaries and the partial tail chunk; a range
 inside a chunk is summarised one 32-position word at a time by the
 kernel's bit arithmetic and the words combined in the order of its
-shuffle tree. The model runs at chunk sizes 1, 7, 64 and 4,096 (the
-kernel's is 1,024), so that chunk edges fall everywhere, and must equal
-the JAX package exactly. The wrappers on CPU tensors (their plain
-versions) must equal the JAX package too, and their argument checks must
-raise. Every statistic is an integer, so every comparison is exact.
+shuffle tree. In the JOIN mode (``JoinModel``) pass 1 gathers each valid
+position's count once into presence words and one count sum a word, and
+everything after reads those, going back to the counts only for a
+range's partial edge words. The model runs at chunk sizes 1, 7, 64 and
+4,096 (the kernel's is 1,024), so that chunk edges fall everywhere, and
+must equal the JAX package exactly. The wrappers on CPU tensors (their
+plain versions; the multi-slab one against per-slab calls too) must equal
+the JAX package, and their argument checks must raise. Every statistic
+is an integer, so every comparison is exact.
 """
 
 import functools
@@ -34,6 +38,7 @@ from .torch_gapscan_cases import (
     bits,
     join_case,
     rows_case,
+    slabs_case,
 )
 
 CHUNKS = [1, 7, 64, 4096]
@@ -113,20 +118,27 @@ def tree(sums, k):
     return lanes[0]
 
 
+def word_mask(w, lo, hi):
+    """The bits of word w inside positions [lo, hi]."""
+    mask = FULL
+    if w == lo >> 5:
+        mask &= (FULL << (lo & 31)) & FULL
+    if w == hi >> 5:
+        mask &= FULL >> (31 - (hi & 31))
+    return mask
+
+
 class Model:
     """The kernel's two passes at chunk size ``chunk`` over one row.
-    pwords / vwords: presence (inside valid) and valid as 32-bit words;
-    cnt: per-position counts of present positions (JOIN mode) or None."""
+    pwords / vwords: presence (inside valid) and valid as 32-bit
+    words."""
 
-    def __init__(self, pr, valid, k, chunk, cnt=None):
+    def __init__(self, pr, valid, k, chunk):
         self.n = valid.shape[0]
         self.k = k
         self.chunk = chunk
         self.pwords = bits(pr & valid).view("<u4").astype(np.int64)
         self.vwords = bits(valid).view("<u4").astype(np.int64)
-        self.csum = (None if cnt is None else
-                     np.concatenate([[0], np.cumsum(np.where(pr & valid,
-                                                             cnt, 0))]))
         n_chunks = -(-self.n // chunk)
         self.chunks = [  # pass 1
             self.range_sum(c * chunk, min(self.n, (c + 1) * chunk) - 1)
@@ -137,17 +149,9 @@ class Model:
         """Positions [lo, hi] of one chunk: one word a lane, masked."""
         lanes = []
         for w in range(lo >> 5, (hi >> 5) + 1):
-            mask = FULL
-            if w == lo >> 5:
-                mask &= (FULL << (lo & 31)) & FULL
-            if w == hi >> 5:
-                mask &= FULL >> (31 - (hi & 31))
-            vw = int(self.vwords[w]) & mask
+            vw = int(self.vwords[w]) & word_mask(w, lo, hi)
             lanes.append(word_sum(int(self.pwords[w]) & vw, vw, self.k))
-        s = tree(lanes, self.k)
-        if self.csum is not None:  # the lanes' count sums, added up
-            s = s[:6] + (int(self.csum[hi + 1] - self.csum[lo]),)
-        return s
+        return tree(lanes, self.k)
 
     def window(self, s, h):
         n, c, k = self.n, self.chunk, self.k
@@ -177,6 +181,52 @@ class Model:
         out = np.array([self.window(int(s), int(h)) for s, h in zip(ws, wh)],
                        np.int64)
         return out.T[:fields] if len(ws) else np.zeros((fields, 0), np.int64)
+
+
+class JoinModel(Model):
+    """The JOIN mode. Pass 1 gathers each valid position's count once
+    (through the slot map, compared unsigned) into the presence words
+    and one count sum a word; the chunk summaries and the windows read
+    those and gather again only the present positions of a range's
+    partial edge words. ``pass1_gathers`` counts pass 1's gathers,
+    ``chunk_gathers`` those of the chunk summaries after it (none with
+    chunks of whole words), ``window_gathers`` the most of one
+    window."""
+
+    def __init__(self, routed, slot_map, valid, k, chunk, min_count):
+        self.routed = routed.astype(np.int64)
+        self.slot_map = slot_map
+        live = np.flatnonzero(valid)
+        cnt = np.zeros(valid.shape[0], np.int64)
+        cnt[live] = self.routed[slot_map[live]]  # pass 1: once a position
+        self.gathers = self.pass1_gathers = live.shape[0]
+        pr = valid & (cnt >= min_count)
+        self.wsum = np.where(pr, cnt, 0).reshape(-1, 32).sum(1)
+        self.window_gathers = 0
+        super().__init__(pr, valid, k, chunk)
+        self.chunk_gathers = self.gathers - self.pass1_gathers
+
+    def count(self, pos):
+        self.gathers += 1
+        return int(self.routed[self.slot_map[pos]])
+
+    def range_sum(self, lo, hi):
+        csum = 0
+        for w in range(lo >> 5, (hi >> 5) + 1):
+            mask = word_mask(w, lo, hi)
+            if mask == FULL:
+                csum += int(self.wsum[w])
+                continue
+            pw = int(self.pwords[w]) & mask
+            csum += sum(self.count(32 * w + b) for b in range(32)
+                        if pw >> b & 1)
+        return super().range_sum(lo, hi)[:6] + (csum,)
+
+    def window(self, s, h):
+        before = self.gathers
+        out = super().window(s, h)
+        self.window_gathers = max(self.window_gathers, self.gathers - before)
+        return out
 
 
 def _cs_tot(valid):
@@ -259,9 +309,15 @@ def test_model_matches_jax_slab_scan(chunk, min_count):
     summed in int64."""
     seed = 20 + min_count
     routed, slot_map, valid, ws, wh = join_case(seed, min_count)
-    cnt = routed[slot_map].astype(np.int64)
-    got = Model(cnt >= min_count, valid, 31, chunk, cnt).scan(ws, wh, 6)
+    model = JoinModel(routed, slot_map, valid, 31, chunk, min_count)
+    assert model.pass1_gathers == valid.sum()  # each count once
+    got = model.scan(ws, wh, 6)
     np.testing.assert_array_equal(got, _jax_join(seed, min_count))
+    if chunk % 32 == 0:
+        # chunks of whole words: the chunk summaries gather nothing, and a
+        # window gathers again only in its two partial edge words
+        assert model.chunk_gathers == 0
+        assert 0 < model.window_gathers <= 2 * 31
 
 
 @pytest.mark.parametrize("chunk", CHUNKS)
@@ -270,8 +326,7 @@ def test_model_matches_plain_on_inverted_windows(chunk):
     prefix differences give (negated sums, the rest 0)."""
     routed, slot_map, valid, ws, wh = join_case(5, 2, inverted=True)
     assert (wh < ws - 1).sum() >= 3
-    cnt = routed[slot_map].astype(np.int64)
-    got = Model(cnt >= 2, valid, 31, chunk, cnt).scan(ws, wh, 6)
+    got = JoinModel(routed, slot_map, valid, 31, chunk, 2).scan(ws, wh, 6)
     want = tgs.slab_scan_join_ref(
         _t(routed.view(np.int32)), _t(slot_map), _t(bits(valid)), _t(ws),
         _t(wh), k=31, min_count=2)
@@ -306,6 +361,52 @@ def test_rows_scan_cpu_matches_jax(k):
     assert tgs.rows_scan.launches == before
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_slabs(seed, min_count):
+    """JAX ``_slab_scan`` over each slab of ``slabs_case``."""
+    routed, slot_maps, valid, ws, wh = slabs_case(seed, min_count,
+                                                  inverted=True)
+    return np.stack([np.asarray(jdj._slab_scan(
+        jnp.asarray(routed), jnp.asarray(slot_maps[si]),
+        jnp.asarray(bits(valid[si])), jnp.asarray(ws[si].astype(np.int32)),
+        jnp.asarray(wh[si].astype(np.int32)), k=31, min_count=min_count,
+        wide_windows=True,
+    )) for si in range(slot_maps.shape[0])])
+
+
+@pytest.mark.parametrize("min_count", [1, 3])
+def test_slabs_scan_join_cpu_matches_slabs_and_jax(min_count):
+    """Three slabs of one sample (each its own slot map, valid bitmap and
+    windows, inverted ones too) in one call: equal to one
+    ``slab_scan_join`` a slab and to the JAX ``_slab_scan`` of each."""
+    routed, slot_maps, valid, ws, wh = slabs_case(40 + min_count, min_count,
+                                                  inverted=True)
+    args = [_t(routed.view(np.int32)), _t(slot_maps), _t(bits(valid)),
+            _t(ws), _t(wh)]
+    before = tgs.slabs_scan_join.launches
+    got = tgs.slabs_scan_join(*args, k=31, min_count=min_count)
+    assert got.shape == (3, 6, ws.shape[1]) and got.dtype == torch.int64
+    assert tgs.slabs_scan_join.launches == before
+    for si in range(3):
+        one = tgs.slab_scan_join(args[0], *(a[si] for a in args[1:]), k=31,
+                                 min_count=min_count)
+        assert torch.equal(got[si], one)
+    np.testing.assert_array_equal(got.numpy(), _jax_slabs(40 + min_count,
+                                                          min_count))
+
+
+@pytest.mark.parametrize("chunk", [64, 4096])
+def test_join_model_matches_jax_over_slabs(chunk):
+    """The JOIN model slab by slab equals the JAX ``_slab_scan`` of each
+    slab (the kernel takes the slab as its row)."""
+    routed, slot_maps, valid, ws, wh = slabs_case(41, 1, inverted=True)
+    want = _jax_slabs(41, 1)
+    for si in range(slot_maps.shape[0]):
+        got = JoinModel(routed, slot_maps[si], valid[si], 31, chunk,
+                        1).scan(ws[si], wh[si], 6)
+        np.testing.assert_array_equal(got, want[si])
+
+
 def _join_args():
     routed, slot_map, valid, ws, wh = join_case(7, 1)
     return [_t(routed.view(np.int32)), _t(slot_map), _t(bits(valid)),
@@ -315,6 +416,12 @@ def _join_args():
 def _rows_args():
     pr, valid, ws, wh = rows_case(7, 31)
     return [_t(bits(pr)), _t(bits(valid)), _t(ws), _t(wh)]
+
+
+def _slabs_args():
+    routed, slot_maps, valid, ws, wh = slabs_case(7, 1)
+    return [_t(routed.view(np.int32)), _t(slot_maps), _t(bits(valid)),
+            _t(ws), _t(wh)]
 
 
 BAD = [
@@ -328,6 +435,10 @@ BAD = [
     ("rows", 0, lambda t: t[0], TypeError),  # presence not 2-D
     ("rows", 0, lambda t: t.t(), ValueError),  # not contiguous
     ("rows", 2, lambda t: t[:, None], ValueError),  # bounds not 1-D
+    ("slabs", 1, lambda t: t[0], TypeError),  # one slot map, not (S, n)
+    ("slabs", 1, lambda t: t[:2], ValueError),  # slab counts differ
+    ("slabs", 2, lambda t: t[:, :-1].contiguous(), ValueError),  # n % 32
+    ("slabs", 3, lambda t: t[0], ValueError),  # bounds not (S, W)
 ]
 
 
@@ -335,10 +446,12 @@ BAD = [
                          ids=[f"{m}-{a}-{e.__name__}-{i}"
                               for i, (m, a, _b, e) in enumerate(BAD)])
 def test_wrapper_checks_raise(mode, arg, bad, exc):
-    args = _join_args() if mode == "join" else _rows_args()
+    args = {"join": _join_args, "rows": _rows_args,
+            "slabs": _slabs_args}[mode]()
     args[arg] = bad(args[arg])
-    fn = tgs.slab_scan_join if mode == "join" else tgs.rows_scan
-    kw = {"k": 31, "min_count": 1} if mode == "join" else {"k": 31}
+    fn = {"join": tgs.slab_scan_join, "rows": tgs.rows_scan,
+          "slabs": tgs.slabs_scan_join}[mode]
+    kw = {"k": 31} if mode == "rows" else {"k": 31, "min_count": 1}
     with pytest.raises(exc):
         fn(*args, **kw)
 

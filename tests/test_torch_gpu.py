@@ -24,7 +24,14 @@ from kcftools_tpu_torch.ops import gapscan as tgs
 from kcftools_tpu_torch.ops import lookup as tlk
 from kcftools_tpu_torch.ops import pjoin as tpj
 
-from .torch_gapscan_cases import bits, join_case, rows_case
+from .torch_gapscan_cases import (
+    N,
+    bits,
+    join_case,
+    rows_case,
+    runs_case,
+    slabs_case,
+)
 from .torch_join_cases import EDGE_SHAPES, hard_join_operands, layout_width
 
 _TOP32 = np.uint64(0xFFFFFFFF00000000)  # k=32 T^16A^16
@@ -147,13 +154,13 @@ def test_device_join_scorer_gpu_matches_cpu(cuda_device, counts_hi):
     db, dbc = np.unique(canonicalize(km2[kv2], k), return_counts=True)
     dbc = dbc.astype(np.uint32) * np.uint32(1000 if counts_hi else 7)
     out = {}
-    before = tgs.slab_scan_join.launches
+    before = tgs.slabs_scan_join.launches
     for dev in (torch.device("cpu"), cuda_device):
         sc = DeviceJoinScorer(_Ref(refk), k, dev, min_count=2)
         sc.add_chrom("c", r_idx, starts, ends)
         sc.submit(0, refk, db, dbc)
         out[dev.type] = sc.collect(0)["c"]
-    assert tgs.slab_scan_join.launches == before + len(sc._layout.slabs)
+    assert tgs.slabs_scan_join.launches == before + 1  # every slab at once
     for f, want in out["cpu"].items():
         np.testing.assert_array_equal(out["cuda"][f], want, err_msg=f)
     assert out["cuda"]["observed"].sum() > 0
@@ -193,8 +200,9 @@ def test_device_prefix_scorer_gpu_matches_cpu(cuda_device, monkeypatch,
     tables = [(db, dbc * np.uint32(3)), (db, dbc * np.uint32(500)),
               (db[keep], dbc[keep])]
     fn = tdp._score_runs if kind == "runs" else tdp._score_batch
+    scan = tgs.runs_scan if kind == "runs" else tgs.rows_scan
     before = fn.cuda_calls
-    scans = tgs.rows_scan.launches
+    scans = scan.launches
     out = {}
     for dev in (torch.device("cpu"), cuda_device):
         sc = tdp.DevicePrefixScorer(None, k, dev, min_count=2, batch=3)
@@ -206,7 +214,7 @@ def test_device_prefix_scorer_gpu_matches_cpu(cuda_device, monkeypatch,
         assert len(sc._layout.slabs) == 2
         sc.close()
     assert fn.cuda_calls == before + 2  # one call per slab
-    assert tgs.rows_scan.launches == scans + 2  # all 3 rows in one launch
+    assert scan.launches == scans + 2  # all 3 rows in one launch
     for got, want in zip(out["cuda"], out["cpu"]):
         for f, w in want.items():
             np.testing.assert_array_equal(got[f], w, err_msg=f)
@@ -351,14 +359,32 @@ def _on(dev, *arrays):
 
 @pytest.fixture
 def no_plain_scan(monkeypatch):
-    """A CUDA tensor must never reach the plain scan."""
+    """A CUDA tensor must never reach the plain scan: the wrappers find
+    every plain version raising. Returns the plain versions by mode, each
+    run with the real plain versions in place (they call each other)."""
+    names = {"join": "slab_scan_join_ref", "rows": "rows_scan_ref",
+             "slabs": "slabs_scan_join_ref", "runs": "runs_scan_ref"}
+    real = {name: getattr(tgs, name) for name in names.values()}
+
     def boom(*_a, **_k):
         raise AssertionError("a CUDA tensor reached the plain scan")
 
-    plain = {"join": tgs.slab_scan_join_ref, "rows": tgs.rows_scan_ref}
-    monkeypatch.setattr(tgs, "slab_scan_join_ref", boom)
-    monkeypatch.setattr(tgs, "rows_scan_ref", boom)
-    return plain
+    def place(fns):
+        for name in names.values():
+            setattr(tgs, name, fns.get(name, boom))
+
+    def plain(name):
+        def run(*args, **kw):
+            place(real)
+            try:
+                return real[name](*args, **kw)
+            finally:
+                place({})
+        return run
+
+    for name in names.values():
+        monkeypatch.setattr(tgs, name, boom)
+    return {mode: plain(name) for mode, name in names.items()}
 
 
 @pytest.mark.cuda
@@ -395,6 +421,70 @@ def test_gapscan_rows_kernel_matches_plain(cuda_device, no_plain_scan, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("min_count", [1, 3])
+def test_gapscan_slabs_kernel_matches_plain(cuda_device, no_plain_scan,
+                                            min_count):
+    """The JOIN mode over three slabs of one sample (each its own slot
+    map, valid bitmap and windows) in one launch: bit-exact against the
+    plain version slab by slab."""
+    routed, slot_maps, valid, ws, wh = slabs_case(min_count, min_count,
+                                                  inverted=True)
+    args = _on(cuda_device, routed.view(np.int32), slot_maps, bits(valid),
+               ws, wh)
+    before = tgs.slabs_scan_join.launches
+    got = tgs.slabs_scan_join(*args, k=31, min_count=min_count)
+    torch.cuda.synchronize()
+    assert tgs.slabs_scan_join.launches == before + 1
+    want = no_plain_scan["slabs"](*args, k=31, min_count=min_count)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [17, 31, 45])
+def test_gapscan_runs_kernel_matches_plain(cuda_device, no_plain_scan, k):
+    """The RUNS mode: fillers, continuations, zero padding, runs that end
+    at and start past n, an all-absent row and an empty stream, all rows
+    in one launch, bit-exact against the plain decode and scan."""
+    dl, valid, ws, wh = runs_case(70 + k, k)
+    args = _on(cuda_device, dl, bits(valid), ws, wh)
+    before = tgs.runs_scan.launches
+    got = tgs.runs_scan(*args, k=k)
+    torch.cuda.synchronize()
+    assert tgs.runs_scan.launches == before + 1
+    assert torch.equal(got, no_plain_scan["runs"](*args, k=k))
+
+
+@pytest.mark.cuda
+def test_gapscan_runs_kernel_on_encoder_streams(cuda_device, no_plain_scan):
+    """Streams of the native kcf_bits_to_runs, one run segment of the
+    kernel split many times (a row of ~1,200 short runs), equal
+    the plain version and the bitmap scan of the same presence."""
+    from kcftools_tpu_torch.native import bits_to_runs
+
+    pr, valid, ws, wh = rows_case(81, 31)
+    pr[0, 64 : 64 + 2 * 1300] = True
+    pr[0, 64 : 64 + 2 * 1300 : 2] = False  # ~1,200 short runs
+    pr[0] &= valid
+    streams, longest = [], 0
+    for row in pr:
+        d, ln, n_runs = bits_to_runs(bits(row), bits(valid), N, 8192)
+        assert n_runs >= 0
+        streams.append(np.stack([d, ln]))
+        longest = max(longest, n_runs)
+    assert longest > 1024
+    dl = np.zeros((len(streams), 2, max(s.shape[1] for s in streams) + 3),
+                  np.uint8)
+    for r, st in enumerate(streams):
+        dl[r, :, : st.shape[1]] = st
+    args = _on(cuda_device, dl, bits(valid), ws, wh)
+    got = tgs.runs_scan(*args, k=31)
+    assert torch.equal(got, no_plain_scan["runs"](*args, k=31))
+    rows = tgs.rows_scan(*_on(cuda_device, bits(pr), bits(valid), ws, wh),
+                         k=31)
+    assert torch.equal(got, rows)
+
+
+@pytest.mark.cuda
 def test_gapscan_main_width(cuda_device):
     """One slab at the main path's width (2^24 positions, 4,970-position
     tiling windows padded to 4,096 entries) in both modes, bit-exact."""
@@ -425,3 +515,11 @@ def test_gapscan_main_width(cuda_device):
     pb = tdp._pack_bits(pres)
     got = tgs.rows_scan(pb, vb, ws, wh, k=31)
     assert torch.equal(got, tgs.rows_scan_ref(pb, vb, ws, wh, k=31))
+    # two slabs of the same width in one JOIN launch
+    sms = torch.stack([slot_map, slot_map.flip(0)])
+    vbs = torch.stack([vb, vb.flip(0)])
+    got = tgs.slabs_scan_join(routed, sms, vbs, torch.stack([ws, ws]),
+                              torch.stack([wh, wh]), k=31, min_count=3)
+    assert torch.equal(got, tgs.slabs_scan_join_ref(
+        routed, sms, vbs, torch.stack([ws, ws]), torch.stack([wh, wh]),
+        k=31, min_count=3))

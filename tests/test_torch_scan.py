@@ -110,5 +110,9 @@ def test_layout_matches_jax(slab_pos):
     assert len(ours.slabs) == len(theirs.slabs)
     for a, b in zip(ours.slabs, theirs.slabs):
         assert a["wins"] == b["wins"] and a["n_win"] == b["n_win"]
-        for f in ("r_idx", "cs_tot", "w_start", "w_hi"):
+        for f in ("r_idx", "w_start", "w_hi"):
             np.testing.assert_array_equal(a[f], b[f])
+        # the JAX layout's int32 valid prefix counts follow from r_idx,
+        # the field the port keeps
+        np.testing.assert_array_equal(
+            b["cs_tot"], np.concatenate([[0], np.cumsum(a["r_idx"] >= 0)]))

@@ -7,9 +7,13 @@ are shorter than k, empty (w_hi = w_start - 1), padding ([0, 0]) or, on
 request, inverted (w_hi < w_start - 1); presence dense with SNP-like
 absent runs, sparse, all absent or all present, with position 0 present;
 N runs, one across a chunk edge, and an invalid slab tail; several rows;
-counts that fit a byte, reach 2^31 and 2^32 - 1. numpy only: shared by
-the CPU tests (the port's plain scan and a model of the kernel against
-the JAX package) and the card tests (the kernel against the plain scan).
+counts that fit a byte, reach 2^31 and 2^32 - 1; several slabs of one
+sample over shared routed counts; absent-run streams with (255, 0)
+fillers, (0, 255) continuations, zero padding, a run that ends at n, runs
+past n and across invalid positions, an all-absent row and an empty
+stream. numpy only: shared by the CPU tests (the port's plain scan and
+models of the kernel against the JAX package) and the card tests (the
+kernel against the plain scan).
 """
 
 import numpy as np
@@ -105,3 +109,85 @@ def join_case(seed, min_count, n=N, n_routed=3000, inverted=False):
 def bits(a):
     """(..., n) bool -> (..., n/8) uint8 LSB-first."""
     return np.packbits(a, axis=-1, bitorder="little")
+
+
+def slabs_case(seed, min_count, n_slabs=3, n=N, inverted=False):
+    """(routed, slot_maps (S, n) int32, valid (S, n) bool, w_starts,
+    w_his (S, W) int64): the slabs of one sample, each with its own slot
+    map, valid mask and windows, over the first slab's routed counts."""
+    cases = [join_case(seed + i, min_count, n=n, inverted=inverted)
+             for i in range(n_slabs)]
+    return (cases[0][0], *(np.stack([c[i] for c in cases])
+                           for i in range(1, 5)))
+
+
+def encode_runs(runs):
+    """The native kcf_bits_to_runs encoding of sorted disjoint runs
+    [s, e): (delta, length) uint8 with (255, 0) fillers and (0, 255)
+    continuations."""
+    d, ln = [], []
+    prev = 0
+    for s, e in runs:
+        gap = s - prev
+        while gap > 255:
+            d.append(255)
+            ln.append(0)
+            gap -= 255
+        take = min(e - s, 255)
+        d.append(gap)
+        ln.append(take)
+        rest = e - s - take
+        while rest > 0:
+            take = min(rest, 255)
+            d.append(0)
+            ln.append(take)
+            rest -= take
+        prev = e
+    return np.array([d, ln], np.uint8).reshape(2, -1)
+
+
+def absent_runs(pr):
+    """The maximal absent stretches [s, e) of a presence row."""
+    edges = np.flatnonzero(np.diff(np.r_[1, pr.astype(np.int8), 1]))
+    return list(zip(edges[::2].tolist(), edges[1::2].tolist()))
+
+
+def runs_case(seed, k, n=N, pad=9):
+    """(dl (S, 2, R) uint8, valid (n,) bool, w_start, w_hi): the streams
+    of a dense and a sparse presence row (absent stretches over invalid
+    positions kept whole, long present stretches and runs longer than
+    255), an all-absent row (one run [0, n), continuations to the end),
+    an empty stream, and a row whose last runs reach and start past n;
+    ``pad`` zero entries after the longest stream."""
+    rng = np.random.default_rng(seed)
+    valid = valid_mask(rng, n)
+    dense = presence(rng, valid, "dense", k) | ~valid
+    sparse = presence(rng, valid, "sparse", k) | ~valid
+    dense[1500:2400] = True  # > 255 present positions: fillers
+    dense[3000:3400] = False  # > 255 absent: continuations
+    streams = [
+        encode_runs(absent_runs(dense)),
+        encode_runs(absent_runs(sparse)),
+        encode_runs([(0, n)]),
+        np.zeros((2, 0), np.uint8),
+        encode_runs([(40, 90), (n - 10, n + 20), (n + 50, n + 60)]),
+    ]
+    R = max(st.shape[1] for st in streams) + pad
+    dl = np.zeros((len(streams), 2, R), np.uint8)
+    for r, st in enumerate(streams):
+        dl[r, :, : st.shape[1]] = st
+    ws, wh = windows(rng, n, k)
+    return dl, valid, ws, wh
+
+
+def runs_presence(dl, valid):
+    """Presence of each row of ``dl``: the valid positions outside every
+    run (runs clamped to n)."""
+    n = valid.shape[0]
+    out = np.tile(valid, (dl.shape[0], 1))
+    for r in range(dl.shape[0]):
+        ends = np.cumsum(dl[r, 0].astype(np.int64) + dl[r, 1])
+        for e, ln in zip(ends.tolist(), dl[r, 1].tolist()):
+            if ln and e - ln < n:
+                out[r, e - ln : min(e, n)] = False
+    return out
