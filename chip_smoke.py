@@ -6,10 +6,10 @@
 Phases (any failure exits non-zero):
   1. device   - the card's name, and its name and power limit as
                 nvidia-smi reports them;
-  2. build    - nvcc builds the port's kernels from csrc/ (pjoin.cu and
-                gapscan.cu, both builds at once; their ptxas registers and
-                spills are printed), and g++ the port's native host library
-                into kcftools_tpu_torch/_build - timed;
+  2. build    - nvcc builds the port's kernels from csrc/ (pjoin.cu,
+                gapscan.cu and hashscan.cu, all builds at once; their ptxas
+                registers and spills are printed), and g++ the port's
+                native host library into kcftools_tpu_torch/_build - timed;
   3. kernels  - each kernel against its plain torch version on the
                 card. The join at the edge shapes (EDGE_SHAPES) and the
                 main path's (P = 2^16 partitions, Tq = Tt = 1024), on
@@ -27,7 +27,13 @@ Phases (any failure exits non-zero):
                 the bound (bytes over HBM_BYTES_PER_S), for the JOIN mode
                 the sector floor (SECTOR_BYTES a gathered count) and for
                 the RUNS mode its design floor (the bound plus the decoded
-                bitmaps written and read back once);
+                bitmaps written and read back once). The hash engine's
+                probe and scan on the edge cases of
+                tests/torch_hash_cases.py and at a gene batch (512 x
+                8,192) and the mesh's window batch (833 x 5,032) against
+                a 2^24-bucket table of ~44 M keys, timed there beside the
+                bound and the sector floor (HASH_SECTOR a probed bucket
+                row; 32 B a sector of counts holding a valid k-mer's);
   4. slice    - synthesises a 40 Mbp reference in 4 chromosomes (N runs
                 sprinkled) and 3 KMC samples at 1% SNPs (the third with
                 counts > 255 up to 2^32 - 1, so both kernel variants
@@ -51,7 +57,9 @@ Phases (any failure exits non-zero):
                 ``KCFTOOLS_SORT_CACHE_BUDGET=0`` on a copy of a database
                 without its sorted sidecar (the streamed ingest); and
                 ``-f gene`` / ``-f transcript`` with ``--engine device``
-                (the on-chip hash engine, ``table_lookup``) and
+                (the on-chip hash engine: ``hash_probe`` and ``hash_scan``
+                launches, one each a batch, and ``table_lookup`` never on
+                the card) and
                 ``--engine dprefix`` over a synthetic GTF (~4,000 genes of
                 1-10 kb, 1-3 transcripts of 2-6 exons, both strands, a few
                 genes shorter than k). Call counters, zeroed before each
@@ -67,7 +75,8 @@ Phases (any failure exits non-zero):
                 data size, but no multi-GPU speed): ``--engine auto``
                 (must take dprefix, slabs on more than one slot);
                 ``--engine device -f window`` with KCFTOOLS_TABLE_AXIS=2
-                (the mesh-sharded hash engine, ``table_lookup``), streamed
+                (the mesh-sharded hash engine: a ``hash_probe`` per table
+                shard for each ``hash_scan``, no ``table_lookup``), streamed
                 by the loader and with ``--memory``; ``-f gene --engine
                 device`` on the mesh; every KCF equal to phase 4's / 5's
                 ``--engine hybrid`` bytes. Then ``MeshJoinScorer`` on a
@@ -132,15 +141,27 @@ KERNELS = {
                      "kcftools_tpu/engine/device_prefix.py:167"),
     "gapscan_runs": ("runs_scan", "launches", "csrc/gapscan.cu",
                      "kcftools_tpu/engine/device_prefix.py:187"),
+    "hash_probe": ("hash_probe", "launches", "csrc/hashscan.cu",
+                   "kcftools_tpu/ops/lookup.py:36"),
+    "hash_scan": ("hash_scan", "launches", "csrc/hashscan.cu",
+                  "kcftools_tpu/engine/pipeline.py:192"),
 }
 MAIN_PATH = ("pjoin_packed", "pjoin_u32", "gapscan_join")  # phase 4
+# the hash engine's shapes: a gene batch of ~2^22 positions (the
+# power-of-two bucket of 4-8 kb features) and the mesh's -w 5000 window
+# batch (2^22 // 5032 rows), against a 2^24-bucket table (one smoke-40M
+# sample's ~44 M keys)
+HASH_GENE, HASH_WINDOW, HASH_KEYS = (512, 8192), (833, 5032), 44_000_000
+HASH_SECTOR = 64  # a 48-byte bucket row always spans two 32-byte sectors
 
 
 def _wrapper(name):
-    from kcftools_tpu_torch.ops import gapscan, pjoin
+    from kcftools_tpu_torch.ops import gapscan, hashscan, pjoin
 
     fn = KERNELS[name][0]
-    return getattr(pjoin if fn == "pjoin_join" else gapscan, fn)
+    if fn == "pjoin_join":
+        return pjoin.pjoin_join
+    return getattr(hashscan if fn.startswith("hash") else gapscan, fn)
 
 
 def zero_launches(names):
@@ -432,14 +453,20 @@ def scan_runs_operands(dev, seed, rows):
 
 
 def _scan_exact(name, fn, ref, args, kw, what):
+    """One launch bit-exact against the plain version; returns the
+    kernel's output and the max abs error (of the uint32 values an int32
+    output holds)."""
     got = fn(*args, **kw)
     want = ref(*args, **kw)
     torch.cuda.synchronize()
-    err = int((got - want).abs().max()) if got.numel() else 0
+    g, w = got.long(), want.long()
+    if got.dtype == torch.int32:
+        g, w = g & 0xFFFFFFFF, w & 0xFFFFFFFF
+    err = int((g - w).abs().max()) if got.numel() else 0
     if not torch.equal(got, want):
         fail(f"{name} {what}: kernel differs from the plain version "
              f"(max abs err {err})")
-    return err
+    return got, err
 
 
 def _scan_edges(dev, seed, modes):
@@ -491,7 +518,7 @@ def _time_scan(name, fn, ref, args, kw, nbytes, floor_bytes=None,
     shape = ("x".join(map(str, args[1].shape)) if name == "gapscan_join"
              else f"{args[0].shape[0]} rows x {8 * args[1].shape[-1]}")
     what = f"{shape} positions, {args[-1].shape[-1]} windows"
-    err = _scan_exact(name, fn, ref, args, kw, what)
+    _, err = _scan_exact(name, fn, ref, args, kw, what)
     for _ in range(3):
         fn(*args, **kw)
     ms = _event_ms(lambda: fn(*args, **kw), 20)
@@ -564,6 +591,209 @@ def check_scan(dev, seed):
             f"plain {row['plain_ms']} ms; bound {row['bound_ms']} ms, share "
             f"{row['bound_share']}{extra}")
         del row["what"]
+    return rows
+
+
+# -- phase 3: the hash engine's probe and scan ---------------------------
+
+def _hash_edges(dev):
+    """Both kernels on the edge cases of tests/torch_hash_cases.py (k 11 /
+    16 / 17 / 31 / 32 on both strands and one, hand-made tables of 1 and
+    2 buckets, shards of 2 and 4, min_count 0 / 1 / 3); returns how
+    many."""
+    from kcftools_tpu_torch.engine.hashtable import (
+        build_table,
+        build_table_sharded,
+    )
+    from kcftools_tpu_torch.ops import hashscan as hs
+    from tests.torch_hash_cases import (
+        KS,
+        MIN_COUNTS,
+        counts_case,
+        hand_table,
+        rows_case,
+        table_keys,
+    )
+
+    n = 0
+    probe = ("hash_probe", hs.hash_probe, hs.hash_probe_ref)
+    scan = ("hash_scan", hs.hash_scan, hs.hash_scan_ref)
+    for k in KS:
+        u8, wl = rows_case(k + 1, k)
+        for both in (True, False):
+            tbl = build_table(*table_keys(k, u8, wl, k, both), k,
+                              both_strands=both).tbl
+            _scan_exact(*probe, _on(dev, u8, wl, tbl.view(np.int32)),
+                        {"k": k, "both_strands": both}, f"k={k}")
+            n += 1
+        u8, wl = rows_case(k, k)
+        for mc in MIN_COUNTS:
+            _scan_exact(*scan, _on(dev, u8, counts_case(k + mc, u8).view(
+                np.int32), wl), {"k": k, "min_count": mc},
+                f"k={k} min_count={mc}")
+            n += 1
+    for nb in (1, 2):
+        u8, wl = rows_case(nb, 32)
+        _scan_exact(*probe, _on(dev, u8, wl, hand_table(
+            u8, wl, 32, True, nb).view(np.int32)),
+            {"k": 32, "both_strands": True}, f"{nb}-bucket table")
+        n += 1
+    for t_axis in (2, 4):
+        u8, wl = rows_case(40 + t_axis, K)
+        keys, counts = table_keys(41, u8, wl, K, True)
+        table = build_table_sharded(keys, counts, K, t_axis)
+        nb = table.n_buckets // t_axis
+        for s in range(t_axis):
+            _scan_exact(*probe, _on(dev, u8, wl, table.tbl[
+                s * nb : (s + 1) * nb].view(np.int32)),
+                {"k": K, "both_strands": True, "nb_total": table.n_buckets,
+                 "shard": s}, f"shard {s} of {t_axis}")
+            n += 1
+    return n
+
+
+def hash_batch(rng, B, Lp, lo, hi, n_rate=0.01):
+    """(u8, win_len) of a padded batch: win_len uniform in [lo, hi], random
+    bases with ~n_rate N, the sentinel past each window."""
+    wl = rng.integers(lo, hi + 1, B).astype(np.int64)
+    u8 = rng.integers(0, 4, (B, Lp)).astype(np.uint8)
+    u8[rng.random((B, Lp)) < n_rate] = 4
+    u8[np.arange(Lp)[None, :] >= wl[:, None]] = 4
+    return u8, wl
+
+
+def _batch_kmers(u8, wl):
+    """The canonical k-mers of a batch's valid starts (uint64)."""
+    from kcftools_tpu_torch.engine.encode import canonicalize, pack_kmers
+
+    out = []
+    for row, n in zip(u8, wl):
+        km, kv = pack_kmers(row[:n], row[:n] < 4, K)
+        out.append(canonicalize(km[kv], K))
+    return np.concatenate(out)
+
+
+def hash_table(dev, rng, batches, frac=0.72):
+    """A ~HASH_KEYS-key table (2^24 buckets): ``frac`` of the batches'
+    distinct k-mers and random canonical k-mers, counts up to 2^32 - 1.
+    Returns the table on ``dev`` and its bucket count."""
+    from kcftools_tpu_torch.engine.encode import canonicalize
+    from kcftools_tpu_torch.engine.hashtable import build_table
+    from kcftools_tpu_torch.native import sort_pairs
+
+    q = np.unique(np.concatenate([_batch_kmers(*b) for b in batches]))
+    q = q[rng.random(q.shape[0]) < frac]
+    more = canonicalize(rng.integers(0, 1 << (2 * K), HASH_KEYS - q.shape[0],
+                                     dtype=np.uint64), K)
+    keys, _ = sort_pairs(np.concatenate([q, more]),
+                         np.zeros(HASH_KEYS, np.uint32))
+    keys = keys[np.r_[True, keys[1:] != keys[:-1]]]
+    counts = rng.integers(1, 1 << 32, keys.shape[0], dtype=np.uint64)
+    table = build_table(keys, counts.astype(np.uint32), K)
+    (tbl,) = _on(dev, table.tbl.view(np.int32))
+    return tbl, table.n_buckets
+
+
+def hash_bytes(u8, wl, nb):
+    """The bytes each hash kernel must move on the card's batch, and its
+    sector floor's, counted from this batch's data. Returns ((probe,
+    probe floor), (scan, scan floor), valid k-mers).
+
+    probe: 1 B read a base of the valid k-mers' span (up to win_len, none
+    in a row shorter than k), 4 B written a k-mer start, 48 B (floor:
+    HASH_SECTOR) a probed bucket row: one a valid k-mer, two where its
+    hashes differ. scan: the rows read once (eff_length reads every
+    byte), 4 B read a valid k-mer's count (floor: the 32-byte sectors of
+    the counts that hold one), win_len and the (8, B) int64 output."""
+    from kcftools_tpu_torch.ops.hashscan import PAD_MARGIN, _kmer_valid
+    from kcftools_tpu_torch.ops.kmerize import (
+        assemble_kmers,
+        canonical_select,
+        rolling_pack_u32,
+    )
+    from kcftools_tpu_torch.ops.lookup import bucket_hashes
+
+    B, Lp = u8.shape
+    n_out = Lp - PAD_MARGIN
+    valid = u8 < 4
+    w32, rcw32 = rolling_pack_u32(torch.where(valid, u8, 0).long())
+    hi, lo = canonical_select(*assemble_kmers(w32, rcw32, K, n_out))
+    h1, h2 = bucket_hashes(hi, lo, nb)
+    kv = _kmer_valid(valid, wl, K, n_out)
+    n_valid = int(kv.sum())
+    rows = n_valid + int((kv & (h1 != h2)).sum())
+    span = torch.where(wl >= K, torch.clamp(wl, max=n_out + K - 1), 0)
+    rest = int(span.sum()) + 4 * B * n_out
+    # the sectors of the contiguous (B, n_out) counts, 8 counts each
+    flat = torch.nn.functional.pad(kv.reshape(-1), (0, -kv.numel() % 8))
+    sectors = int(flat.view(-1, 8).any(dim=1).sum())
+    srest = B * Lp + (8 + 64) * B
+    return ((rest + 48 * rows, rest + HASH_SECTOR * rows),
+            (srest + 4 * n_valid, srest + 32 * sectors), n_valid)
+
+
+def check_hash(dev, seed):
+    """Both hash kernels bit-exact against their plain versions on the
+    edge cases and at the gene and mesh-window batches (HASH_GENE,
+    HASH_WINDOW) against a 2^24-bucket table, then timed there: kernel
+    and plain ms from CUDA events, beside the bound and the sector floor
+    (bytes over HBM_BYTES_PER_S, counted by hash_bytes from the batch's
+    data). No single PyTorch call computes either, so library_ms is
+    null."""
+    from kcftools_tpu_torch.ops import hashscan as hs
+
+    n_edge = _hash_edges(dev)
+    rng = np.random.default_rng(seed + 7)
+    batches = {"gene": hash_batch(rng, *HASH_GENE, 4096, HASH_GENE[1] - 32),
+               "mesh_window": hash_batch(rng, *HASH_WINDOW, 5000, 5000)}
+    t0 = time.perf_counter()
+    tbl, nb = hash_table(dev, rng, batches.values())
+    log(f"hash: table of {nb} buckets ({tbl.numel() * 4} bytes) built in "
+        f"{time.perf_counter() - t0} s")
+    rows = {"hash_probe": {}, "hash_scan": {}}
+    for shape, (u8_h, wl_h) in batches.items():
+        u8, wl = _on(dev, u8_h, wl_h)
+        what = f"{shape} batch {tuple(u8.shape)}"
+        pkw = {"k": K, "both_strands": True}
+        skw = {"k": K, "min_count": 1}
+        counts, perr = _scan_exact("hash_probe", hs.hash_probe,
+                                   hs.hash_probe_ref, [u8, wl, tbl], pkw,
+                                   what)
+        _, serr = _scan_exact("hash_scan", hs.hash_scan, hs.hash_scan_ref,
+                              [u8, counts, wl], skw, what)
+        (pbytes, pfloor), (sbytes, sfloor), n_valid = hash_bytes(u8, wl, nb)
+        present = int((counts != 0).sum()) / max(1, n_valid)
+        if not 0.6 < present < 0.85:
+            fail(f"hash_probe {what}: {present} of the valid k-mers "
+                 "present - bad operands")
+        for name, fn, ref, args, kw, err, nbytes, floor in (
+                ("hash_probe", hs.hash_probe, hs.hash_probe_ref,
+                 [u8, wl, tbl], pkw, perr, pbytes, pfloor),
+                ("hash_scan", hs.hash_scan, hs.hash_scan_ref,
+                 [u8, counts, wl], skw, serr, sbytes, sfloor)):
+            for _ in range(3):
+                fn(*args, **kw)
+            ms = _event_ms(lambda: fn(*args, **kw), 20)
+            plain_ms = _event_ms(lambda: ref(*args, **kw), 1)
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes", "library_ms": None,
+                   "bound_bytes": nbytes}
+            row["bound_share"] = row["bound_ms"] / ms
+            row["sector_floor_ms"] = floor / HBM_BYTES_PER_S * 1e3
+            row["sector_floor_share"] = row["sector_floor_ms"] / ms
+            log(f"{name}: exact on {n_edge} edge cases and at {what} "
+                f"(max_abs_err {err}; {present} of {n_valid} valid k-mers "
+                f"present); kernel {ms} ms, plain {plain_ms} ms; "
+                f"{json.dumps(row)}")
+            if shape == "gene":
+                rows[name].update(row)
+            else:
+                rows[name][shape] = {f: row[f] for f in row
+                                     if f.endswith(("ms", "bytes"))}
+        del u8, wl, counts
+    del tbl
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -816,25 +1046,39 @@ def _calls():
     return (tdp._score_runs, tdp._score_batch, table_lookup)
 
 
-_SCANS = ("gapscan_join", "gapscan_rows", "gapscan_runs")
+_COUNTED = ("gapscan_join", "gapscan_rows", "gapscan_runs", "hash_probe",
+            "hash_scan")
 
 
 def _zero_calls():
     for fn in _calls():
         fn.cuda_calls = 0
-    zero_launches(_SCANS)
+    zero_launches(_COUNTED)
 
 
 def _read_calls():
     calls = dict(zip(("score_runs", "score_batch", "table_lookup"),
                      (fn.cuda_calls for fn in _calls())))
-    calls.update(read_launches(_SCANS))
+    calls.update(read_launches(_COUNTED))
     return calls
 
 
 def _need(calls, name, what):
     if calls[name] == 0:
         fail(f"{what}: {name} did not run on the card ({calls})")
+
+
+def _need_hash(calls, what, table_axis=1):
+    """A hash-engine run: both kernels launched, a probe per table shard
+    for every scan (one scan a batch and data row), and the plain lookup
+    never on the card."""
+    _need(calls, "hash_probe", what)
+    _need(calls, "hash_scan", what)
+    if calls["hash_probe"] != table_axis * calls["hash_scan"]:
+        fail(f"{what}: {calls['hash_probe']} probe launches for "
+             f"{calls['hash_scan']} scans, want {table_axis} a scan")
+    if calls["table_lookup"] != 0:
+        fail(f"{what}: the plain table_lookup ran on the card ({calls})")
 
 
 def _need_scan(calls, what):
@@ -934,13 +1178,12 @@ def run_engines(root, ref, dbs, chrom_len, host_kcf, seed):
         h_s, _, h_kcf = drive(f"host_{feature}", dbs, "hybrid", args=args)
         host_feature_kcf[feature] = (h_kcf, n_feat[feature])
         times["hybrid"] = h_s
-        for engine, program in (("device", "table_lookup"),
-                                ("dprefix", None)):
+        for engine in ("device", "dprefix"):
             e_s, e_st, e_kcf = drive(f"{engine}_{feature}", dbs, engine,
                                      args=args)
             calls = out[f"{engine}_{feature}"]
-            if program:
-                _need(calls, program, f"{engine} {feature}")
+            if engine == "device":
+                _need_hash(calls, f"device {feature}")
             else:
                 _need_scan(calls, f"dprefix {feature}")
             check_same(e_kcf, h_kcf, n_feat[feature], f"{engine} {feature}")
@@ -1093,7 +1336,7 @@ def run_mesh(root, ref, dbs, chrom_len, host_kcf, host_gene, smi):
                        ("mesh_device_memory", WINDOW_ARGS + ("--memory",))):
         d_s, d_st, d_kcf = drive(name, "device", args=args,
                                  KCFTOOLS_TABLE_AXIS=str(MESH_TABLE_AXIS))
-        _need(out[name], "table_lookup", name)
+        _need_hash(out[name], name, MESH_TABLE_AXIS)
         check_same(d_kcf, host_kcf, n_win, name)
         times[name] = (d_s, total, d_st)
 
@@ -1102,7 +1345,7 @@ def run_mesh(root, ref, dbs, chrom_len, host_kcf, host_gene, smi):
     g_s, g_st, g_kcf = drive("mesh_gene", "device", args=("-f", "gene",
                                                           "-g", gtf),
                              KCFTOOLS_TABLE_AXIS=str(MESH_TABLE_AXIS))
-    _need(out["mesh_gene"], "table_lookup", "gene on the mesh")
+    _need_hash(out["mesh_gene"], "gene on the mesh", MESH_TABLE_AXIS)
     check_same(g_kcf, host_gene_kcf, n_genes, "gene on the mesh")
     times["mesh_gene"] = (g_s, n_genes * len(dbs), g_st)
     if "jax" in sys.modules:
@@ -1169,6 +1412,7 @@ def main():
 
     rows = check_kernels(dev, args.seed, MAIN_P, MAIN_TQ, MAIN_TT)
     rows.update(check_scan(dev, args.seed))
+    rows.update(check_hash(dev, args.seed))
 
     root = tempfile.mkdtemp(prefix="kcf_smoke_")
     try:
@@ -1183,6 +1427,9 @@ def main():
         # the ROWS mode's its -p 2500 bitmap run
         launches["gapscan_runs"] = calls5["dprefix"]["gapscan_runs"]
         launches["gapscan_rows"] = calls5["dprefix_slide"]["gapscan_rows"]
+        # the hash kernels' path is the -f gene --engine device run
+        for name in ("hash_probe", "hash_scan"):
+            launches[name] = calls5["device_gene"][name]
         run_mesh(root, ref, dbs, chrom_len, host_kcf, feature_kcf["gene"],
                  smi)
     finally:

@@ -28,6 +28,9 @@ Layout (mirrors kcftools_tpu):
   ops/_kernels.py       nvcc build and ctypes binding of csrc/*.cu
   ops/kmerize.py        canonical (hi, lo) k-mers of padded windows
   ops/lookup.py         bucketed hash-table lookup
+  ops/gapscan.py        the window gap-run scan kernel's wrappers
+  ops/hashscan.py       the hash engine's probe and scan kernels'
+                        wrappers and plain versions
   engine/device_prefix  the gap-run prefix scan, slab layout and
                         DevicePrefixScorer (dprefix)
   engine/device_join    DeviceJoinScorer, MeshJoinScorer

@@ -58,13 +58,12 @@ def _tiny_problem(n_windows=8, win_len=192, k=31, seed=0):
 
 def _score_windows_device(codes, valid, win_len, tbl, *, k, min_count,
                           both_strands):
-    from .engine.pipeline import score_windows_core
-    from .ops.lookup import table_lookup
+    from .engine.pipeline import FIELDS, SENTINEL, _score_u8_batch
 
-    return score_windows_core(
-        codes, valid, win_len, lambda hi, lo: table_lookup(hi, lo, tbl),
-        k=k, min_count=min_count, both_strands=both_strands,
-    )
+    u8 = torch.where(valid, codes.to(torch.uint8), int(SENTINEL))
+    res = _score_u8_batch(u8, win_len, tbl, k=k, min_count=min_count,
+                          both_strands=both_strands)
+    return dict(zip(FIELDS, res))
 
 
 def entry():

@@ -1,21 +1,24 @@
-"""The on-chip hash engine's window scoring pipeline, in torch.
+"""The on-chip hash engine's window scoring pipeline.
 
 Port of kcftools_tpu/engine/pipeline.py, the engine behind
 ``getVariations -f gene|transcript --engine device`` (k <= 32). For a
 padded batch of windows it computes, on the device with no sequential
 host loops:
 
-  2-bit codes -> rolling 16-base packs -> (hi, lo) canonical k-mers ->
-  bucketed hash-table lookups -> per-window gap-run statistics.
+  sentinel-coded bytes -> canonical k-mers -> bucketed hash-table
+  lookups -> per-window gap-run statistics.
 
-The gap-run state machine of Plugins/GetVariants.java:219-251 is a
-data-parallel formulation: with ``vidx`` the ordinal of each valid k-mer
-and ``prev`` the ordinal of the previous present k-mer (an exclusive
-running max), every gap statistic is an elementwise expression plus a
-masked sum, with the reference's distance correction d <= 0 -> |d+1|
-(GetVariants.java:267-273). Effective length (ACGT stretches >= k,
-Data/Fasta.java:140-167) uses the same running-max trick on base-level
-validity runs.
+On the card a batch is two kernel launches (ops/hashscan.py:
+``hash_probe``, then ``hash_scan``; csrc/hashscan.cu). On the CPU they
+take their plain versions, the torch ops of ``score_windows_core``: the
+gap-run state machine of Plugins/GetVariants.java:219-251 as a
+data-parallel formulation (``gap_scan_core``, ops/hashscan.py) in which,
+with ``vidx`` the ordinal of each valid k-mer and ``prev`` the ordinal
+of the previous present k-mer (an exclusive running max), every gap
+statistic is an elementwise expression plus a masked sum, with the
+reference's distance correction d <= 0 -> |d+1| (GetVariants.java:
+267-273). Effective length (ACGT stretches >= k, Data/Fasta.java:
+140-167) uses the same running-max trick on base-level validity runs.
 
 All sums are int64: the count sum is exact, where the JAX version sums
 in float64 (exact below 2^53). Besides padded window batches
@@ -29,99 +32,18 @@ import numpy as np
 import torch
 
 from .windows import PAD_MARGIN
-from ..ops.kmerize import assemble_kmers, canonical_select, rolling_pack_u32
-from ..ops.lookup import table_lookup
-
-FIELDS = (
-    "total",
-    "observed",
-    "variations",
-    "inner",
-    "left",
-    "right",
-    "count_sum",
-    "eff_length",
+from ..ops import hashscan
+from ..ops.hashscan import (  # noqa: F401  (the plain scan, re-exported)
+    FIELDS,
+    _kmer_valid,
+    gap_scan_core,
+    hash_probe,
+    hash_scan,
 )
+from ..ops.kmerize import assemble_kmers, canonical_select, rolling_pack_u32
 
 # sentinel code for non-ACGT / out-of-window positions in uint8 inputs
-SENTINEL = np.uint8(4)
-
-
-def _exclusive_cummax(x, init: int):
-    """Running max along the last axis of everything before each
-    element (``init`` before the first)."""
-    shifted = torch.cat([torch.full_like(x[..., :1], init), x[..., :-1]],
-                        dim=-1)
-    return torch.cummax(shifted, dim=-1).values
-
-
-def _kmer_valid(valid, win_len, k: int, n_out: int):
-    """(B, n_out) bool: the k-mer at each start is all ACGT and inside
-    its window."""
-    B = valid.shape[0]
-    cv = torch.cumsum(valid, dim=1, dtype=torch.int64)
-    cv_pad = torch.cat([cv.new_zeros((B, 1)), cv], dim=1)
-    run_k = cv_pad[:, k : k + n_out] - cv_pad[:, 0:n_out]
-    pos = torch.arange(n_out, device=valid.device)[None, :]
-    return (run_k == k) & (pos <= win_len[:, None] - k)
-
-
-def gap_scan_core(valid, present, win_len, *, k: int):
-    """The data-parallel gap-run scan.
-
-    valid: (B, Lp) bool base-level validity; present: (B, Lp) bool k-mer
-    start presence; win_len: (B,) int64. Returns a dict of (B,) int64:
-    total, observed, variations, inner, left, right, count_sum (zeros)
-    and eff_length."""
-    B, Lp = valid.shape
-    n_out = Lp - PAD_MARGIN
-    kmer_valid = _kmer_valid(valid, win_len, k, n_out)
-    present = present[:, :n_out] & kmer_valid
-
-    vidx = torch.cumsum(kmer_valid, dim=1, dtype=torch.int64) - 1
-    pres_ord = torch.where(present, vidx, -1)
-    prev = _exclusive_cummax(pres_ord, -1)
-
-    gap_before = vidx - prev - 1
-    closed = present & (gap_before > 0)
-    leading = closed & (prev == -1)
-    interior = closed & (prev >= 0)
-
-    d = gap_before - (k - 1)
-    dist = torch.where(d > 0, d, torch.abs(d + 1))
-
-    left = torch.where(leading, gap_before, 0).sum(dim=1)
-    inner = torch.where(interior, dist, 0).sum(dim=1)
-    var_closed = closed.sum(dim=1)
-
-    total = kmer_valid.sum(dim=1)
-    observed = present.sum(dim=1)
-    last_p = pres_ord.max(dim=1).values
-    trailing = total - 1 - last_p
-    has_trailing = trailing > 0
-    right = torch.where(has_trailing, trailing, 0)
-    variations = var_closed + has_trailing.long()
-
-    bpos = torch.arange(Lp, device=valid.device)[None, :]
-    no = torch.zeros((B, 1), dtype=torch.bool, device=valid.device)
-    prev_valid = torch.cat([no, valid[:, :-1]], dim=1)
-    next_valid = torch.cat([valid[:, 1:], no], dim=1)
-    run_start = valid & ~prev_valid
-    run_end = valid & ~next_valid
-    start_pos = torch.cummax(torch.where(run_start, bpos, -1), dim=1).values
-    run_len = bpos - start_pos + 1
-    eff = torch.where(run_end & (run_len >= k), run_len, 0).sum(dim=1)
-
-    return {
-        "total": total,
-        "observed": observed,
-        "variations": variations,
-        "inner": inner,
-        "left": left,
-        "right": right,
-        "count_sum": torch.zeros_like(total),
-        "eff_length": eff,
-    }
+SENTINEL = np.uint8(hashscan.SENTINEL)
 
 
 def score_windows_core(codes, valid, win_len, lookup_fn, *, k: int,
@@ -153,18 +75,13 @@ def score_windows_core(codes, valid, win_len, lookup_fn, *, k: int,
     return res
 
 
-def _score_u8_batch(u8, win_len, lookup_fn, *, k, min_count,
-                    both_strands):
+def _score_u8_batch(u8, win_len, tbl, *, k, min_count, both_strands):
     """u8: (B, Lp) uint8 codes with SENTINEL marking invalid positions;
-    ``lookup_fn`` as for ``score_windows_core``. Returns one (8, B)
-    int64 tensor (FIELDS order)."""
-    valid = u8 < int(SENTINEL)
-    codes = torch.where(valid, u8, 0).long()
-    res = score_windows_core(
-        codes, valid, win_len, lookup_fn,
-        k=k, min_count=min_count, both_strands=both_strands,
-    )
-    return torch.stack([res[f] for f in FIELDS])
+    tbl: the (nb, 12) int32 table. Two launches on the card
+    (``hash_probe``, ``hash_scan``). Returns one (8, B) int64 tensor
+    (FIELDS order)."""
+    counts = hash_probe(u8, win_len, tbl, k=k, both_strands=both_strands)
+    return hash_scan(u8, counts, win_len, k=k, min_count=min_count)
 
 
 def _score_chunk(chunk_u8, starts, win_len, tbl, *, Lp, k, min_count,
@@ -176,10 +93,8 @@ def _score_chunk(chunk_u8, starts, win_len, tbl, *, Lp, k, min_count,
     u8 = chunk_u8[torch.clamp(idx, max=chunk_u8.shape[0] - 1)]
     pos = torch.arange(Lp, device=chunk_u8.device)[None, :]
     u8 = torch.where(pos < win_len[:, None], u8, int(SENTINEL))
-    return _score_u8_batch(
-        u8, win_len, lambda hi, lo: table_lookup(hi, lo, tbl), k=k,
-        min_count=min_count, both_strands=both_strands,
-    )
+    return _score_u8_batch(u8, win_len, tbl, k=k, min_count=min_count,
+                           both_strands=both_strands)
 
 
 def combine_u8(codes: np.ndarray, valid: np.ndarray) -> np.ndarray:
@@ -220,12 +135,11 @@ class WindowScorer:
     def score_batch_async(self, codes, valid, win_len):
         """Dispatch one padded batch; returns the (8, B) device tensor."""
         u8 = combine_u8(np.asarray(codes), np.asarray(valid))
-        tbl = self.tbl
         return _score_u8_batch(
             torch.from_numpy(u8).to(self.device),
             torch.from_numpy(np.asarray(win_len, np.int64)).to(self.device),
-            lambda hi, lo: table_lookup(hi, lo, tbl), k=self.k,
-            min_count=self.min_count, both_strands=self.both_strands,
+            self.tbl, k=self.k, min_count=self.min_count,
+            both_strands=self.both_strands,
         )
 
     def score_batch(self, codes, valid, win_len):

@@ -547,17 +547,9 @@ def write_kmc_db(
     del kmers, counts, bins
 
     lut_size = 1 << (2 * lut_len)
-    # bin-major record keys fit uint32 (nbins <= 4^sig, lut_size small);
-    # chunked fill keeps the multi-Gbp writer's temporaries bounded
-    keys = np.empty(n, np.uint32)
-    _CH = 1 << 26
-    for i in range(0, n, _CH):
-        j = min(n, i + _CH)
-        keys[i:j] = bins_s[i:j] * np.uint32(lut_size) + (
-            kmers_s[i:j] >> np.uint64(2 * suffix_len)
-        ).astype(np.uint32)
+    keys = _bin_major_keys(bins_s, kmers_s, suffix_len, lut_size, nbins)
     prefix_array = np.searchsorted(
-        keys, np.arange(nbins * lut_size, dtype=np.uint32)
+        keys, np.arange(nbins * lut_size, dtype=keys.dtype)
     ).astype("<u8")
     del keys, bins_s
 
@@ -566,6 +558,24 @@ def write_kmc_db(
         n, k, mode, counter_size, lut_len, sig_len, min_count, max_count,
         both_strands,
     )
+
+
+def _bin_major_keys(bins_s, kmers_s, suffix_len, lut_size, nbins):
+    """The records' bin-major keys, bin * lut_size + lut prefix. uint32
+    while nbins * lut_size < 2^32 (the default lut and signature
+    lengths), uint64 past it, where uint32 keys would wrap (the wide
+    writers' keys are uint64 throughout). Filled in chunks, so the
+    multi-Gbp writer's temporaries stay bounded."""
+    dt = np.uint32 if nbins * lut_size < 1 << 32 else np.uint64
+    n = kmers_s.shape[0]
+    keys = np.empty(n, dt)
+    _CH = 1 << 26
+    for i in range(0, n, _CH):
+        j = min(n, i + _CH)
+        keys[i:j] = bins_s[i:j].astype(dt, copy=False) * dt(lut_size) + (
+            kmers_s[i:j] >> np.uint64(2 * suffix_len)
+        ).astype(dt)
+    return keys
 
 
 _BIG_SORT_MIN = 1 << 26  # records below this keep the np.lexsort path

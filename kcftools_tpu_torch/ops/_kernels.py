@@ -5,8 +5,9 @@ library with a plain C entry point and loaded through ``ctypes``; the
 wrapper passes device pointers and the current stream as ``c_void_p``.
 The library is built at first use into ``KCFTOOLS_TORCH_BUILD`` (default
 ``kcftools_tpu_torch/_build``, listed in .gitignore), under a name keyed
-by a hash of the source and the flags, so an edited source rebuilds. A
-missing ``nvcc`` or a failed build raises.
+by a hash of the source, the headers of ``csrc`` (``*.cuh``, which the
+sources include) and the flags, so an edited source or header rebuilds.
+A missing ``nvcc`` or a failed build raises.
 """
 
 import ctypes
@@ -52,9 +53,12 @@ def load(name):
     if name in _libs:
         return _libs[name]
     src = os.path.join(_CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        text = f.read()
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(_CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            key.update(f.read())
+    key = key.hexdigest()
     out_dir = _build_dir()
     lib_path = os.path.join(out_dir, f"lib{name}-{key[:16]}.so")
     info = {"seconds": 0.0, "log": "", "path": lib_path}
@@ -115,24 +119,29 @@ def launch_pjoin(qh, ql, th, tl, tc, out, P, Tq, Tt, packed):
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
-# entry point of csrc/gapscan.cu -> its argument types (tensors, then ints,
-# then the stream)
-_GAPSCAN = {
-    "kcf_gapscan_join": [_P, _LL, *[_P] * 8, _LL, _I, _I, _I, _LL, _P],
-    "kcf_gapscan_rows": [*[_P] * 6, _LL, _I, _I, _I, _P],
-    "kcf_gapscan_runs": [_P, _LL, *[_P] * 7, _LL, _I, _I, _I, _P],
+# entry point -> (its source in csrc, its argument types: tensors, then
+# sizes, then the stream; sizes that can pass 2^31 are c_longlong)
+_ENTRIES = {
+    "kcf_gapscan_join": ("gapscan", [_P, _LL, *[_P] * 8, _LL, _I, _I, _I,
+                                     _LL, _P]),
+    "kcf_gapscan_rows": ("gapscan", [*[_P] * 6, _LL, _I, _I, _I, _P]),
+    "kcf_gapscan_runs": ("gapscan", [_P, _LL, *[_P] * 7, _LL, _I, _I, _I,
+                                     _P]),
+    "kcf_hash_probe": ("hashscan", [*[_P] * 4, *[_LL] * 6, _I, _I, _P]),
+    "kcf_hash_scan": ("hashscan", [*[_P] * 5, _LL, _LL, _LL, _I, _LL, _P]),
 }
 
 
-def launch_gapscan(entry, *args):
-    """Call one entry point of csrc/gapscan.cu on the current stream of
-    the last tensor argument's device (the output). Tensors pass as their
-    pointers, None as a null pointer; the stream is appended. Operands are
-    checked by the caller (ops/gapscan.py)."""
-    lib = load("gapscan")
-    fn = getattr(lib, entry)
+def launch(entry, *args):
+    """Call one C entry point of csrc/gapscan.cu or csrc/hashscan.cu on the
+    current stream of the last tensor argument's device (the output).
+    Tensors pass as their pointers, None as a null pointer; the stream is
+    appended. Operands are checked by the caller (ops/gapscan.py,
+    ops/hashscan.py)."""
+    source, argtypes = _ENTRIES[entry]
+    fn = getattr(load(source), entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = _GAPSCAN[entry]
+    fn.argtypes = argtypes
     out = [a for a in args if isinstance(a, torch.Tensor)][-1]
     vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(out.device):

@@ -251,7 +251,7 @@ def _n_chunks(n):
 def _join_kernel(wrapper, routed, slot_maps, valid_bits, w_starts, w_his, n,
                  k, min_count):
     """(S, 6, W) from one JOIN-mode launch; counts it on ``wrapper``."""
-    from ._kernels import launch_gapscan
+    from ._kernels import launch
 
     dev = routed.device
     S, W = slot_maps.shape[0], w_starts.shape[1]
@@ -263,9 +263,9 @@ def _join_kernel(wrapper, routed, slot_maps, valid_bits, w_starts, w_his, n,
                          "aligned")
     presence, wsum, chunks = _scratch(dev, S * n // 64, S * n // 32,
                                       S * _n_chunks(n) * _SUM_WORDS)
-    launch_gapscan("kcf_gapscan_join", routed, routed.numel(), slot_maps,
-                   valid_bits, w_starts, w_his, presence, wsum, chunks, out,
-                   n, S, W, int(k), int(min_count))
+    launch("kcf_gapscan_join", routed, routed.numel(), slot_maps, valid_bits,
+           w_starts, w_his, presence, wsum, chunks, out, n, S, W, int(k),
+           int(min_count))
     wrapper.launches += 1
     return out
 
@@ -333,7 +333,7 @@ def rows_scan(presence, valid_bits, w_start, w_hi, *, k: int):
     valid_bits: (n/8,) uint8, n a multiple of 32; w_start, w_hi: (W,)
     int64 inclusive window bounds. Returns (5, S, W) int64: observed,
     variations, inner, left, right."""
-    from ._kernels import launch_gapscan
+    from ._kernels import launch
 
     n = _check("rows_scan", valid_bits, w_start, w_hi, presence)
     if presence.dtype != torch.uint8 or presence.dim() != 2:
@@ -351,8 +351,8 @@ def rows_scan(presence, valid_bits, w_start, w_hi, *, k: int):
     if out.numel() == 0:
         return out
     (chunks,) = _scratch(dev, S * _n_chunks(n) * _SUM_WORDS)
-    launch_gapscan("kcf_gapscan_rows", presence, valid_bits, w_start, w_hi,
-                   chunks, out, n, S, W, int(k))
+    launch("kcf_gapscan_rows", presence, valid_bits, w_start, w_hi, chunks,
+           out, n, S, W, int(k))
     rows_scan.launches += 1
     return out
 
@@ -367,7 +367,7 @@ def runs_scan(dl, valid_bits, w_start, w_hi, *, k: int):
     Returns (5, S, W) int64: observed, variations, inner, left, right.
     On the card one launch decodes the streams into presence bitmaps (no
     torch op touches the S x n rows) and scans them."""
-    from ._kernels import launch_gapscan
+    from ._kernels import launch
 
     n = _check("runs_scan", valid_bits, w_start, w_hi, dl)
     if dl.dtype != torch.uint8 or dl.dim() != 3 or dl.shape[1] != 2:
@@ -383,8 +383,8 @@ def runs_scan(dl, valid_bits, w_start, w_hi, *, k: int):
         return out
     seg, presence, chunks = _scratch(dev, S * -(-R // _RUN_SEG), S * n // 64,
                                      S * _n_chunks(n) * _SUM_WORDS)
-    launch_gapscan("kcf_gapscan_runs", dl, R, valid_bits, w_start, w_hi, seg,
-                   presence, chunks, out, n, S, W, int(k))
+    launch("kcf_gapscan_runs", dl, R, valid_bits, w_start, w_hi, seg,
+           presence, chunks, out, n, S, W, int(k))
     runs_scan.launches += 1
     return out
 

@@ -16,7 +16,9 @@ then for a k-mer starting at i with n_hi = min(k, 16), n_lo = k - 16:
   rc_hi  = rcw32[i+k-n_hi] & (4^n_hi - 1)
   rc_lo  = rcw32[i]        & (4^n_lo - 1)
 
-Canonical = lexicographic min (Data/Kmer.java:72-79).
+Canonical = lexicographic min (Data/Kmer.java:72-79). These build the
+plain version's k-mers (ops/hashscan.py::hash_probe_ref); on the card the
+probe kernel csrc/hashscan.cu builds each one as a 64-bit value.
 
 torch has no uint32 shifts or compares on the CPU, so the 32-bit values
 are carried in int64 tensors. Every value stays in [0, 2^32), where

@@ -5,7 +5,9 @@ kcftools_tpu/engine/hashtable.py: one interleaved (nb, 3*S) uint32
 array, row = [hi x S | lo x S | cnt x S] (S = 4 slots), every key in
 one of its two buckets. Two row gathers + vectorised compares per
 query. The hashes must stay bit-identical with
-``hashtable.bucket_hashes_np``, or every lookup misses.
+``hashtable.bucket_hashes_np``, or every lookup misses. This is the plain
+version's lookup (ops/hashscan.py::hash_probe_ref); on the card the
+probe kernel csrc/hashscan.cu does it.
 
 torch has no uint32 arithmetic on the CPU: the keys and hashes are
 int64 tensors in [0, 2^32), and the table is an int32 tensor holding

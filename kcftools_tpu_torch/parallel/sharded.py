@@ -1,27 +1,31 @@
-"""Multi-device window scoring over a (data, table) mesh, in torch.
+"""Multi-device window scoring over a (data, table) mesh.
 
 Port of kcftools_tpu/parallel/sharded.py, the on-chip hash engine on
 several devices. Window batches are split along ``data`` (each data
 row scores its own windows); the k-mer table is split along ``table``
-under shard-local placement (``ops/lookup.py::table_lookup`` with
+under shard-local placement (``ops/hashscan.py::hash_probe`` with
 ``nb_total``): every key's two candidate buckets live in the shard that
 owns its first hash, so each shard computes partial counts for the
 queries it can see and the sum over the table axis is exact.
 
 The JAX version is one ``shard_map`` program; here each data row is a
-loop step. A row's k-mers are built on its first slot, every local
-table shard of the row adds its partial counts there (the ``psum`` over
-``table`` within a process), ``all_reduce`` adds the other processes'
-shards, and the sum is masked to 32 bits. Nothing synchronises the
-host before ``collect``.
+loop step. Every local table shard of a row probes the row's bytes
+(``ops/hashscan.py::hash_probe`` with ``nb_total`` / ``shard``: one
+launch on the card, 1 byte a position sent to the shard), the partial
+counts are summed on the row's first slot (the ``psum`` over ``table``
+within a process), ``all_reduce`` adds the other processes' shards, the
+sum is masked to 32 bits, and one ``hash_scan`` scores the row. Nothing
+synchronises the host before ``collect``.
 """
 
 import numpy as np
 import torch
 
 from ..engine.hashtable import build_sharded_hilo
-from ..engine.pipeline import _score_u8_batch, _unstack, combine_u8
-from ..ops.lookup import table_lookup
+from ..engine.pipeline import _unstack, combine_u8
+from ..engine.windows import PAD_MARGIN
+from ..ops.hashscan import hash_probe, hash_scan
+from ..ops.lookup import _as_i32
 from .mesh import all_reduce_sum
 
 _M32 = 0xFFFFFFFF
@@ -69,21 +73,25 @@ class ShardedTable:
         return self.parts[(slot.device, ti)]
 
 
-def _sharded_lookup(hi, lo, table, di):
-    """Global counts of (hi, lo) on data row ``di``: the partial counts
-    of the row's local table shards, summed on the row's device, then
-    across processes, masked to 32 bits."""
+def _sharded_lookup(u8, win_len, table, di, *, k, both_strands):
+    """The global counts of the k-mers of data row ``di``'s bytes (u8:
+    (B, Lp) uint8, win_len: (B,) int64, on the row's device): one
+    ``hash_probe`` per local table shard, the partial counts summed on
+    the row's device, then across processes, masked to 32 bits. Returns
+    (B, Lp - PAD_MARGIN) int32 holding the uint32 counts."""
     mesh = table.mesh
-    row_dev = hi.device
-    acc = torch.zeros(hi.shape, dtype=torch.int64, device=row_dev)
+    row_dev = u8.device
+    acc = torch.zeros((u8.shape[0], u8.shape[1] - PAD_MARGIN),
+                      dtype=torch.int64, device=row_dev)
     for ti, slot in enumerate(mesh.devices[di]):
         if not mesh.is_local(slot):
             continue
         dev = slot.device
-        part = table_lookup(hi.to(dev), lo.to(dev), table.shard(slot, ti),
-                            nb_total=table.nb_total, shard=ti)
-        acc += part.to(row_dev)
-    return all_reduce_sum(acc) & _M32
+        part = hash_probe(u8.to(dev), win_len.to(dev), table.shard(slot, ti),
+                          k=k, both_strands=both_strands,
+                          nb_total=table.nb_total, shard=ti)
+        acc += part.to(row_dev).long() & _M32
+    return _as_i32(all_reduce_sum(acc) & _M32)
 
 
 def make_sharded_scorer(mesh, *, k, min_count, both_strands, nb_total):
@@ -101,12 +109,13 @@ def make_sharded_scorer(mesh, *, k, min_count, both_strands, nb_total):
         for di in range(d):
             dev = mesh.row_device(di)
             sl = slice(di * rows, (di + 1) * rows)
-            out.append(_score_u8_batch(
-                torch.from_numpy(np.ascontiguousarray(u8[sl])).to(dev),
-                torch.from_numpy(np.asarray(win_len[sl], np.int64)).to(dev),
-                lambda hi, lo, _di=di: _sharded_lookup(hi, lo, table, _di),
-                k=k, min_count=min_count, both_strands=both_strands,
-            ))
+            row_u8 = torch.from_numpy(np.ascontiguousarray(u8[sl])).to(dev)
+            row_len = torch.from_numpy(
+                np.asarray(win_len[sl], np.int64)).to(dev)
+            counts = _sharded_lookup(row_u8, row_len, table, di, k=k,
+                                     both_strands=both_strands)
+            out.append(hash_scan(row_u8, counts, row_len, k=k,
+                                 min_count=min_count))
         return out
 
     return fn

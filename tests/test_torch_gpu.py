@@ -20,7 +20,9 @@ from kcftools_tpu_torch.engine.windows import pad_batch_varlen, tiling_windows
 from kcftools_tpu_torch.engine import device_prefix as tdp
 from kcftools_tpu_torch.engine import pipeline as tpl
 from kcftools_tpu_torch.engine.device_join import DeviceJoinScorer
+from kcftools_tpu_torch.engine.hashtable import build_table_sharded
 from kcftools_tpu_torch.ops import gapscan as tgs
+from kcftools_tpu_torch.ops import hashscan as ths
 from kcftools_tpu_torch.ops import lookup as tlk
 from kcftools_tpu_torch.ops import pjoin as tpj
 
@@ -32,6 +34,7 @@ from .torch_gapscan_cases import (
     runs_case,
     slabs_case,
 )
+from . import torch_hash_cases as thc
 from .torch_join_cases import EDGE_SHAPES, hard_join_operands, layout_width
 
 _TOP32 = np.uint64(0xFFFFFFFF00000000)  # k=32 T^16A^16
@@ -243,12 +246,16 @@ def test_window_scorer_gpu_matches_cpu(cuda_device, both_strands):
         [genome[a : a + n] for a, n in zip(at, lens)],
         [valid[a : a + n] for a, n in zip(at, lens)], pad,
     )
-    before = tlk.table_lookup.cuda_calls
+    before = (tlk.table_lookup.cuda_calls, ths.hash_probe.launches,
+              ths.hash_scan.launches)
     out = {}
     for dev in (torch.device("cpu"), cuda_device):
         out[dev.type] = tpl.WindowScorer(table, dev, min_count=2).score_batch(
             bc, bv, wl)
-    assert tlk.table_lookup.cuda_calls == before + 1
+    # one launch of each kernel; the plain lookup never ran on the card
+    assert (tlk.table_lookup.cuda_calls, ths.hash_probe.launches,
+            ths.hash_scan.launches) == (before[0], before[1] + 1,
+                                        before[2] + 1)
     for f, want in out["cpu"].items():
         np.testing.assert_array_equal(out["cuda"][f], want, err_msg=f)
     assert out["cuda"]["count_sum"].max() >= 1 << 31
@@ -278,10 +285,14 @@ def test_sharded_scorer_gpu_matches_cpu(cuda_device, data, table):
                                   [valid[a : a + 5000] for a in at], 5032)
     want = tpl.WindowScorer(table_, torch.device("cpu")).score_batch(
         bc, bv, wl)
-    before = tlk.table_lookup.cuda_calls
+    before = (tlk.table_lookup.cuda_calls, ths.hash_probe.launches,
+              ths.hash_scan.launches)
     mesh = make_mesh(data, table, devices=_cuda_slots(cuda_device))
     got = ShardedWindowScorer(table_, mesh).score_batch(bc, bv, wl)
-    assert tlk.table_lookup.cuda_calls == before + data * table
+    # a probe per table shard and data row, a scan per data row
+    assert (tlk.table_lookup.cuda_calls, ths.hash_probe.launches,
+            ths.hash_scan.launches) == (before[0], before[1] + data * table,
+                                        before[2] + data)
     for f, w in want.items():
         np.testing.assert_array_equal(got[f], w, err_msg=f)
 
@@ -523,3 +534,123 @@ def test_gapscan_main_width(cuda_device):
     assert torch.equal(got, tgs.slabs_scan_join_ref(
         routed, sms, vbs, torch.stack([ws, ws]), torch.stack([wh, wh]),
         k=31, min_count=3))
+
+
+@pytest.fixture
+def no_plain_hash(monkeypatch):
+    """A CUDA tensor must never reach the plain hash scoring: the wrappers
+    find both plain versions raising. Returns the real ones by name."""
+    names = ("hash_probe_ref", "hash_scan_ref")
+    real = {name: getattr(ths, name) for name in names}
+
+    def boom(*_a, **_k):
+        raise AssertionError("a CUDA tensor reached the plain hash scoring")
+
+    for name in names:
+        monkeypatch.setattr(ths, name, boom)
+    return real
+
+
+def _probe_exact(dev, plain, u8, wl, tbl, **kw):
+    """One hash_probe launch on the card, bit-exact against the plain
+    version; returns the counts."""
+    args = _on(dev, u8, wl) + [torch.from_numpy(
+        np.ascontiguousarray(tbl).view(np.int32)).to(dev)]
+    before = ths.hash_probe.launches
+    got = ths.hash_probe(*args, **kw)
+    torch.cuda.synchronize()
+    assert ths.hash_probe.launches == before + 1
+    assert torch.equal(got, plain["hash_probe_ref"](*args, **kw))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("both_strands", [True, False], ids=["both", "fwd"])
+@pytest.mark.parametrize("k", thc.KS)
+def test_hash_probe_kernel_matches_plain(cuda_device, no_plain_hash, k,
+                                         both_strands):
+    """Every edge row at k 11 / 16 / 17 / 31 / 32 (the k = 16 and 32 shift
+    and mask edges), both strands and one, against a table holding 70% of
+    the rows' k-mers with counts >= 2^31: bit-exact, one launch."""
+    u8, wl = thc.rows_case(k + 1, k)
+    keys, counts = thc.table_keys(k, u8, wl, k, both_strands)
+    table = build_table(keys, counts, k, both_strands=both_strands)
+    got = _probe_exact(cuda_device, no_plain_hash, u8, wl, table.tbl, k=k,
+                       both_strands=both_strands)
+    assert int((got != 0).sum()) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 32])
+@pytest.mark.parametrize("nb", [1, 2])
+def test_hash_probe_kernel_hand_tables(cuda_device, no_plain_hash, nb, k):
+    """Tables of 1 and 2 buckets: dedup where h1 == h2, a key in both of
+    its buckets and in two slots of one, counts that wrap to 0x10."""
+    u8, wl = thc.rows_case(nb, k)
+    got = _probe_exact(cuda_device, no_plain_hash, u8, wl,
+                       thc.hand_table(u8, wl, k, True, nb), k=k,
+                       both_strands=True)
+    assert bool((got == 0x10).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_axis", [2, 4])
+def test_hash_probe_kernel_shards(cuda_device, no_plain_hash, t_axis):
+    """Shard-local placement: each shard's partial counts (ownership by
+    range, b2 within the owner, dedup on the global b2 == h1) bit-exact,
+    and their sum equals the unsharded counts of the same keys."""
+    k = 31
+    u8, wl = thc.rows_case(40 + t_axis, k)
+    keys, counts = thc.table_keys(41, u8, wl, k, True)
+    table = build_table_sharded(keys, counts, k, t_axis)
+    nb = table.n_buckets // t_axis
+    total = 0
+    for s in range(t_axis):
+        part = _probe_exact(cuda_device, no_plain_hash, u8, wl,
+                            table.tbl[s * nb : (s + 1) * nb], k=k,
+                            both_strands=True, nb_total=table.n_buckets,
+                            shard=s)
+        total = total + (part.long() & 0xFFFFFFFF)
+    whole = _probe_exact(cuda_device, no_plain_hash, u8, wl,
+                         build_table(keys, counts, k).tbl, k=k,
+                         both_strands=True)
+    assert torch.equal(total, whole.long() & 0xFFFFFFFF)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_count", [0, 1, 3])
+@pytest.mark.parametrize("k", thc.KS)
+def test_hash_scan_kernel_matches_plain(cuda_device, no_plain_hash, k,
+                                        min_count):
+    """Every edge row (win_len 0, < k, = Lp - 32, all N, N at both ends,
+    runs of k and k - 1, bases past win_len, bytes > 4) with counts around
+    min_count, all 0, >= 2^31 and full-range: bit-exact, one launch."""
+    u8, wl = thc.rows_case(k, k)
+    counts = thc.counts_case(k + min_count, u8).view(np.int32)
+    args = _on(cuda_device, u8, counts, wl)
+    before = ths.hash_scan.launches
+    got = ths.hash_scan(*args, k=k, min_count=min_count)
+    torch.cuda.synchronize()
+    assert ths.hash_scan.launches == before + 1
+    want = no_plain_hash["hash_scan_ref"](*args, k=k, min_count=min_count)
+    assert torch.equal(got, want)
+    assert not bool(got[:, 1].any())  # the padding row
+
+
+@pytest.mark.cuda
+def test_hash_scan_kernel_long_rows(cuda_device, no_plain_hash):
+    """A batch of 3 features of ~2^20 bases (1,025 chunks a row, pass 2
+    over 33 steps of 32), N runs and ~1% N: bit-exact."""
+    rng = np.random.default_rng(3)
+    B, Lp, k = 3, (1 << 20) + 64, 31
+    u8 = rng.integers(0, 4, (B, Lp)).astype(np.uint8)
+    u8[rng.random((B, Lp)) < 0.01] = 4
+    u8[:, 300_000:304_000] = 4
+    wl = np.array([Lp - 32, Lp - 5000, 70_000], np.int64)
+    for r, n in enumerate(wl):
+        u8[r, n:] = 4
+    counts = rng.integers(0, 6, (B, Lp - 32)).astype(np.int32)
+    args = _on(cuda_device, u8, counts, wl)
+    got = ths.hash_scan(*args, k=k, min_count=2)
+    assert torch.equal(got, no_plain_hash["hash_scan_ref"](*args, k=k,
+                                                           min_count=2))
