@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch + CUDA port (kcftools_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--mbp 40] [--samples 3] [--seed 0]
+                          [--kernels-only]
 
-Phases (any failure exits non-zero):
+Phases (any failure exits non-zero; ``--kernels-only`` runs 1-3 and
+prints the kernels' record with no launch counts):
   1. device   - the card's name, and its name and power limit as
                 nvidia-smi reports them;
   2. build    - nvcc builds the port's kernels from csrc/ (pjoin.cu,
@@ -21,19 +23,28 @@ Phases (any failure exits non-zero):
                 launch; the ROWS mode over 3 rows of the dprefix slab,
                 SCAN_ROWS_N positions; the RUNS mode over the native run
                 streams of the same rows; 4,970-position tiling windows).
-                Outputs must be bit-identical; at the main shapes the
-                kernel, plain and library (``torch.searchsorted`` for the
-                join; none for the scan) times from CUDA events, beside
-                the bound (bytes over HBM_BYTES_PER_S), for the JOIN mode
-                the sector floor (SECTOR_BYTES a gathered count) and for
-                the RUNS mode its design floor (the bound plus the decoded
-                bitmaps written and read back once). The hash engine's
-                probe and scan on the edge cases of
-                tests/torch_hash_cases.py and at a gene batch (512 x
-                8,192) and the mesh's window batch (833 x 5,032) against
-                a 2^24-bucket table of ~44 M keys, timed there beside the
-                bound and the sector floor (HASH_SECTOR a probed bucket
-                row; 32 B a sector of counts holding a valid k-mer's);
+                Outputs must be bit-identical; at the main shapes each
+                kernel's time twice: ``ms``, a wrapper call's (CUDA events
+                around 20 calls, the wrapper's host work included), and
+                ``device_ms``, the kernel's own (20 calls captured in a
+                CUDA graph, its replay timed with events); beside them
+                the plain and library (``torch.searchsorted`` for the
+                join; none for the scans) times and the bound (bytes over
+                HBM_BYTES_PER_S), with the shares taken of ``device_ms``;
+                for the JOIN mode the sector floor (SECTOR_BYTES a
+                gathered count) and for the RUNS mode its design floor
+                (the bound plus the decoded bitmaps written and read back
+                once). The hash engine's probe and scan on the edge cases
+                of tests/torch_hash_cases.py and at a gene batch (512 x
+                8,192), the mesh's window batch (833 x 5,032) and a
+                long-feature batch (4 x 2^20) against a 2^24-bucket
+                table of ~44 M keys, timed there beside the bound and the
+                sector floor (HASH_SECTOR a probed bucket row; 32 B a
+                sector of counts holding a valid k-mer's), the probe also
+                beside two gather yardsticks of the same bucket rows
+                (``gather_ms``: one ``torch.index_select``; ``take_ms``:
+                one ``torch.take`` of their int64 words), the card's rate
+                for random 48-byte rows through PyTorch;
   4. slice    - synthesises a 40 Mbp reference in 4 chromosomes (N runs
                 sprinkled) and 3 KMC samples at 1% SNPs (the third with
                 counts > 255 up to 2^32 - 1, so both kernel variants
@@ -148,10 +159,12 @@ KERNELS = {
 }
 MAIN_PATH = ("pjoin_packed", "pjoin_u32", "gapscan_join")  # phase 4
 # the hash engine's shapes: a gene batch of ~2^22 positions (the
-# power-of-two bucket of 4-8 kb features) and the mesh's -w 5000 window
-# batch (2^22 // 5032 rows), against a 2^24-bucket table (one smoke-40M
-# sample's ~44 M keys)
-HASH_GENE, HASH_WINDOW, HASH_KEYS = (512, 8192), (833, 5032), 44_000_000
+# power-of-two bucket of 4-8 kb features), the mesh's -w 5000 window
+# batch (2^22 // 5032 rows) and the batch of the longest features (2^22
+# // 2^20 rows of up to 2^20 - 32 bases), against a 2^24-bucket table
+# (one smoke-40M sample's ~44 M keys)
+HASH_GENE, HASH_WINDOW, HASH_LONG = (512, 8192), (833, 5032), (4, 1 << 20)
+HASH_KEYS = 44_000_000
 HASH_SECTOR = 64  # a 48-byte bucket row always spans two 32-byte sectors
 
 
@@ -281,6 +294,36 @@ def _event_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters=20):
+    """The card's own time of one call of ``fn`` (built and warmed up
+    already): ``iters`` calls captured in a CUDA graph and its replay
+    timed with CUDA events, so the wrapper's host work (argument checks,
+    allocations, the ctypes call) is not in it."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    ms = _event_ms(graph.replay, 3) / iters
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _times(fn, ref, bound_bytes):
+    """Three warm-up calls, then {ms (a wrapper call's, host work
+    included), device_ms, plain_ms, bound_ms, bound_by, bound_share (of
+    device_ms)}."""
+    for _ in range(3):
+        fn()
+    row = {"ms": _event_ms(fn, 20), "device_ms": _device_ms(fn),
+           "plain_ms": _event_ms(ref, 1),
+           "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes"}
+    row["bound_share"] = row["bound_ms"] / row["device_ms"]
+    return row
+
+
 def _check_exact(name, ops, packed, shape):
     from kcftools_tpu_torch.ops.pjoin import pjoin_join, pjoin_join_ref
 
@@ -314,24 +357,19 @@ def check_kernels(dev, seed, P, Tq, Tt):
         err, hits = _check_exact(name, ops, packed, (P, Tq, Tt))
         if hits < P * Tq // 4:
             fail(f"{name}: only {hits} nonzero join results - bad operands")
-        for _ in range(3):
-            pjoin_join(*ops, packed=packed)
-        ms = _event_ms(lambda: pjoin_join(*ops, packed=packed), 20)
-        plain_ms = _event_ms(lambda: pjoin_join_ref(*ops, packed=packed), 1)
+        nbytes = 4 * (sum(t.numel() for t in ops) + P * Tq)
+        row = {"max_abs_err": err, **_times(
+            lambda: pjoin_join(*ops, packed=packed),
+            lambda: pjoin_join_ref(*ops, packed=packed), nbytes)}
         lib = library_join(ops, packed)
         for _ in range(2):
             lib()
-        library_ms = _event_ms(lib, 20)
+        row["library_ms"] = _event_ms(lib, 20)
         del lib
-        nbytes = 4 * (sum(t.numel() for t in ops) + P * Tq)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         log(f"{name}: exact at {EDGE_SHAPES} and P={P} Tq={Tq} Tt={Tt} "
-            f"(max_abs_err {err}, {hits} nonzero); kernel {ms} ms, plain "
-            f"{plain_ms} ms, library {library_ms} ms; bound {bound_ms} ms "
-            f"({nbytes} bytes), share {bound_ms / ms}")
-        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": "bytes",
-                      "bound_share": bound_ms / ms, "library_ms": library_ms}
+            f"(max_abs_err {err}, {hits} nonzero); {nbytes} bytes; "
+            f"{json.dumps(row)}")
+        rows[name] = row
         del ops
         torch.cuda.empty_cache()
     return rows
@@ -513,22 +551,19 @@ def _scan_edges(dev, seed, modes):
 
 def _time_scan(name, fn, ref, args, kw, nbytes, floor_bytes=None,
                floor="sector"):
-    """Bit-exact check, then kernel and plain ms from CUDA events beside
-    the bound (and the sector or design floor)."""
+    """Bit-exact check, then the wrapper call's, device and plain ms
+    beside the bound (and the sector or design floor)."""
     shape = ("x".join(map(str, args[1].shape)) if name == "gapscan_join"
              else f"{args[0].shape[0]} rows x {8 * args[1].shape[-1]}")
     what = f"{shape} positions, {args[-1].shape[-1]} windows"
     _, err = _scan_exact(name, fn, ref, args, kw, what)
-    for _ in range(3):
-        fn(*args, **kw)
-    ms = _event_ms(lambda: fn(*args, **kw), 20)
-    row = {"max_abs_err": err, "ms": ms, "what": what,
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-           "library_ms": None}
-    row["bound_share"] = row["bound_ms"] / ms
+    row = {"max_abs_err": err, "what": what, "library_ms": None,
+           **_times(lambda: fn(*args, **kw), lambda: ref(*args, **kw),
+                    nbytes)}
     if floor_bytes is not None:
         row[f"{floor}_floor_ms"] = floor_bytes / HBM_BYTES_PER_S * 1e3
-        row[f"{floor}_floor_share"] = row[f"{floor}_floor_ms"] / ms
+        row[f"{floor}_floor_share"] = (row[f"{floor}_floor_ms"]
+                                       / row["device_ms"])
     return row
 
 
@@ -555,25 +590,21 @@ def check_scan(dev, seed):
     args, nbytes, floor = scan_join_operands(dev, seed, 3)
     row = _time_scan("gapscan_join", *modes["gapscan_join"], args, jkw,
                      nbytes, floor)
-    row["plain_ms"] = _event_ms(lambda: modes["gapscan_join"][1](*args,
-                                                                 **jkw), 1)
     del args
     args, m_bytes, m_floor = scan_join_operands(
         dev, seed + 1, 3, MAIN_SLABS, MAIN_SLAB_POS, MAIN_SLAB_SPAN)
     main = _time_scan("gapscan_join", *modes["gapscan_join"], args, jkw,
                       m_bytes, m_floor)
-    row["main_slabs"] = {f: main[f] for f in ("what", "ms", "bound_ms",
-                                              "sector_floor_ms")}
+    row["main_slabs"] = {f: main[f] for f in ("what", "ms", "device_ms",
+                                              "bound_ms", "sector_floor_ms")}
     rows["gapscan_join"] = row
     del args
     torch.cuda.empty_cache()
     for name, make in (("gapscan_rows", scan_rows_operands),
                        ("gapscan_runs", scan_runs_operands)):
         args, nbytes, *design = make(dev, seed, 3)
-        row = _time_scan(name, *modes[name], args, {"k": K}, nbytes,
-                         *design, floor="design")
-        row["plain_ms"] = _event_ms(lambda: modes[name][1](*args, k=K), 1)
-        rows[name] = row
+        rows[name] = _time_scan(name, *modes[name], args, {"k": K}, nbytes,
+                                *design, floor="design")
         del args
         torch.cuda.empty_cache()
     for name, row in rows.items():
@@ -587,9 +618,9 @@ def check_scan(dev, seed):
                      f"back) {row['design_floor_ms']} ms (share "
                      f"{row['design_floor_share']})")
         log(f"{name}: exact on {n_edge} edge cases and at {row['what']} "
-            f"(max_abs_err {row['max_abs_err']}); kernel {row['ms']} ms, "
-            f"plain {row['plain_ms']} ms; bound {row['bound_ms']} ms, share "
-            f"{row['bound_share']}{extra}")
+            f"(max_abs_err {row['max_abs_err']}); call {row['ms']} ms, "
+            f"device {row['device_ms']} ms, plain {row['plain_ms']} ms; "
+            f"bound {row['bound_ms']} ms, share {row['bound_share']}{extra}")
         del row["what"]
     return rows
 
@@ -697,7 +728,8 @@ def hash_table(dev, rng, batches, frac=0.72):
 def hash_bytes(u8, wl, nb):
     """The bytes each hash kernel must move on the card's batch, and its
     sector floor's, counted from this batch's data. Returns ((probe,
-    probe floor), (scan, scan floor), valid k-mers).
+    probe floor), (scan, scan floor), valid k-mers, the probed bucket
+    rows' indices: h1 of each valid k-mer, then h2 where it differs).
 
     probe: 1 B read a base of the valid k-mers' span (up to win_len, none
     in a row shorter than k), 4 B written a k-mer start, 48 B (floor:
@@ -721,7 +753,8 @@ def hash_bytes(u8, wl, nb):
     h1, h2 = bucket_hashes(hi, lo, nb)
     kv = _kmer_valid(valid, wl, K, n_out)
     n_valid = int(kv.sum())
-    rows = n_valid + int((kv & (h1 != h2)).sum())
+    probed = torch.cat([h1[kv], h2[kv & (h1 != h2)]])
+    rows = probed.numel()
     span = torch.where(wl >= K, torch.clamp(wl, max=n_out + K - 1), 0)
     rest = int(span.sum()) + 4 * B * n_out
     # the sectors of the contiguous (B, n_out) counts, 8 counts each
@@ -729,23 +762,49 @@ def hash_bytes(u8, wl, nb):
     sectors = int(flat.view(-1, 8).any(dim=1).sum())
     srest = B * Lp + (8 + 64) * B
     return ((rest + 48 * rows, rest + HASH_SECTOR * rows),
-            (srest + 4 * n_valid, srest + 32 * sectors), n_valid)
+            (srest + 4 * n_valid, srest + 32 * sectors), n_valid, probed)
+
+
+def gather_yardstick(tbl, probed):
+    """The card's rate for the probe's random 48-byte bucket rows, from two
+    PyTorch calls that the port never makes, over the rows the batch's
+    valid k-mers probe (``probed``), each read once (two 32-byte sectors)
+    and written once (48 B): ``torch.index_select`` of the (nb, 12) int32
+    table (gather_ms; gather_call_ms as a call's time) and ``torch.take``
+    of each row's six int64 words (take_ms, the faster on an H100).
+    Returns those with gather_rows and gather_bytes."""
+    words = tbl.view(torch.int64).reshape(-1)
+    idx = (probed[:, None] * 6
+           + torch.arange(6, device=probed.device)).reshape(-1)
+    out = {}
+    for name, fn in (("gather", lambda: torch.index_select(tbl, 0, probed)),
+                     ("take", lambda: torch.take(words, idx))):
+        for _ in range(3):
+            fn()
+        out[f"{name}_ms"] = _device_ms(fn)
+        if name == "gather":
+            out["gather_call_ms"] = _event_ms(fn, 20)
+    return {**out, "gather_rows": probed.numel(),
+            "gather_bytes": probed.numel() * (HASH_SECTOR + 48)}
 
 
 def check_hash(dev, seed):
     """Both hash kernels bit-exact against their plain versions on the
-    edge cases and at the gene and mesh-window batches (HASH_GENE,
-    HASH_WINDOW) against a 2^24-bucket table, then timed there: kernel
-    and plain ms from CUDA events, beside the bound and the sector floor
-    (bytes over HBM_BYTES_PER_S, counted by hash_bytes from the batch's
-    data). No single PyTorch call computes either, so library_ms is
+    edge cases and at the gene, mesh-window and long-feature batches
+    (HASH_GENE, HASH_WINDOW, HASH_LONG) against a 2^24-bucket table, then
+    timed there: the wrapper call's, device and plain ms, beside the
+    bound and the sector floor (bytes over HBM_BYTES_PER_S, counted by
+    hash_bytes from the batch's data), the probe also beside the gather
+    yardstick. No single PyTorch call computes either, so library_ms is
     null."""
     from kcftools_tpu_torch.ops import hashscan as hs
 
     n_edge = _hash_edges(dev)
     rng = np.random.default_rng(seed + 7)
     batches = {"gene": hash_batch(rng, *HASH_GENE, 4096, HASH_GENE[1] - 32),
-               "mesh_window": hash_batch(rng, *HASH_WINDOW, 5000, 5000)}
+               "mesh_window": hash_batch(rng, *HASH_WINDOW, 5000, 5000),
+               "long_feature": hash_batch(rng, *HASH_LONG, HASH_LONG[1] // 2,
+                                          HASH_LONG[1] - 32)}
     t0 = time.perf_counter()
     tbl, nb = hash_table(dev, rng, batches.values())
     log(f"hash: table of {nb} buckets ({tbl.numel() * 4} bytes) built in "
@@ -761,7 +820,8 @@ def check_hash(dev, seed):
                                    what)
         _, serr = _scan_exact("hash_scan", hs.hash_scan, hs.hash_scan_ref,
                               [u8, counts, wl], skw, what)
-        (pbytes, pfloor), (sbytes, sfloor), n_valid = hash_bytes(u8, wl, nb)
+        (pbytes, pfloor), (sbytes, sfloor), n_valid, probed = hash_bytes(
+            u8, wl, nb)
         present = int((counts != 0).sum()) / max(1, n_valid)
         if not 0.6 < present < 0.85:
             fail(f"hash_probe {what}: {present} of the valid k-mers "
@@ -771,27 +831,27 @@ def check_hash(dev, seed):
                  [u8, wl, tbl], pkw, perr, pbytes, pfloor),
                 ("hash_scan", hs.hash_scan, hs.hash_scan_ref,
                  [u8, counts, wl], skw, serr, sbytes, sfloor)):
-            for _ in range(3):
-                fn(*args, **kw)
-            ms = _event_ms(lambda: fn(*args, **kw), 20)
-            plain_ms = _event_ms(lambda: ref(*args, **kw), 1)
-            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                   "bound_by": "bytes", "library_ms": None,
-                   "bound_bytes": nbytes}
-            row["bound_share"] = row["bound_ms"] / ms
+            row = {"max_abs_err": err, "library_ms": None,
+                   "bound_bytes": nbytes,
+                   **_times(lambda: fn(*args, **kw), lambda: ref(*args, **kw),
+                            nbytes)}
             row["sector_floor_ms"] = floor / HBM_BYTES_PER_S * 1e3
-            row["sector_floor_share"] = row["sector_floor_ms"] / ms
+            row["sector_floor_share"] = (row["sector_floor_ms"]
+                                         / row["device_ms"])
+            if name == "hash_probe":
+                row.update(gather_yardstick(tbl, probed))
+                row["gather_share"] = row["gather_ms"] / row["device_ms"]
+                row["take_share"] = row["take_ms"] / row["device_ms"]
             log(f"{name}: exact on {n_edge} edge cases and at {what} "
                 f"(max_abs_err {err}; {present} of {n_valid} valid k-mers "
-                f"present); kernel {ms} ms, plain {plain_ms} ms; "
-                f"{json.dumps(row)}")
+                f"present); {json.dumps(row)}")
             if shape == "gene":
                 rows[name].update(row)
             else:
                 rows[name][shape] = {f: row[f] for f in row
-                                     if f.endswith(("ms", "bytes"))}
-        del u8, wl, counts
+                                     if f.endswith(("ms", "bytes", "share",
+                                                    "rows"))}
+        del u8, wl, counts, probed
     del tbl
     torch.cuda.empty_cache()
     return rows
@@ -1373,11 +1433,40 @@ def run_mesh(root, ref, dbs, chrom_len, host_kcf, host_gene, smi):
     return out
 
 
+def run_paths(args, smi):
+    """Phases 4-6 on synthetic data; returns each kernel's launches on
+    its path."""
+    root = tempfile.mkdtemp(prefix="kcf_smoke_")
+    try:
+        t0 = time.perf_counter()
+        ref, dbs, chrom_len = make_data(root, args.mbp, args.samples, args.seed)
+        log(f"data: {args.mbp} Mbp reference, {len(dbs)} samples in "
+            f"{time.perf_counter() - t0} s")
+        launches, host_kcf = run_slice(root, ref, dbs, chrom_len)
+        calls5, feature_kcf = run_engines(root, ref, dbs, chrom_len,
+                                          host_kcf, args.seed)
+        # the RUNS mode's path is the dprefix engine's warm window run,
+        # the ROWS mode's its -p 2500 bitmap run
+        launches["gapscan_runs"] = calls5["dprefix"]["gapscan_runs"]
+        launches["gapscan_rows"] = calls5["dprefix_slide"]["gapscan_rows"]
+        # the hash kernels' path is the -f gene --engine device run
+        for name in ("hash_probe", "hash_scan"):
+            launches[name] = calls5["device_gene"][name]
+        run_mesh(root, ref, dbs, chrom_len, host_kcf, feature_kcf["gene"],
+                 smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mbp", type=int, default=40)
     ap.add_argument("--samples", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 1-3 only: build, check and time the "
+                         "kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke runs on a GPU")
@@ -1414,27 +1503,8 @@ def main():
     rows.update(check_scan(dev, args.seed))
     rows.update(check_hash(dev, args.seed))
 
-    root = tempfile.mkdtemp(prefix="kcf_smoke_")
-    try:
-        t0 = time.perf_counter()
-        ref, dbs, chrom_len = make_data(root, args.mbp, args.samples, args.seed)
-        log(f"data: {args.mbp} Mbp reference, {len(dbs)} samples in "
-            f"{time.perf_counter() - t0} s")
-        launches, host_kcf = run_slice(root, ref, dbs, chrom_len)
-        calls5, feature_kcf = run_engines(root, ref, dbs, chrom_len,
-                                          host_kcf, args.seed)
-        # the RUNS mode's path is the dprefix engine's warm window run,
-        # the ROWS mode's its -p 2500 bitmap run
-        launches["gapscan_runs"] = calls5["dprefix"]["gapscan_runs"]
-        launches["gapscan_rows"] = calls5["dprefix_slide"]["gapscan_rows"]
-        # the hash kernels' path is the -f gene --engine device run
-        for name in ("hash_probe", "hash_scan"):
-            launches[name] = calls5["device_gene"][name]
-        run_mesh(root, ref, dbs, chrom_len, host_kcf, feature_kcf["gene"],
-                 smi)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-
+    launches = (dict.fromkeys(KERNELS) if args.kernels_only
+                else run_paths(args, smi))
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"kcftools_tpu_torch/{source}", "replaces": where,

@@ -10,8 +10,9 @@ host loops:
 
 On the card a batch is two kernel launches (ops/hashscan.py:
 ``hash_probe``, then ``hash_scan``; csrc/hashscan.cu). On the CPU they
-take their plain versions, the torch ops of ``score_windows_core``: the
-gap-run state machine of Plugins/GetVariants.java:219-251 as a
+take their plain versions, the torch ops that ``score_windows_core``
+composes (``hash_probe_ref``'s k-mers, any lookup, ``hash_scan_ref``):
+the gap-run state machine of Plugins/GetVariants.java:219-251 as a
 data-parallel formulation (``gap_scan_core``, ops/hashscan.py) in which,
 with ``vidx`` the ordinal of each valid k-mer and ``prev`` the ordinal
 of the previous present k-mer (an exclusive running max), every gap
@@ -31,16 +32,15 @@ this engine is parallel/sharded.py.
 import numpy as np
 import torch
 
-from .windows import PAD_MARGIN
 from ..ops import hashscan
 from ..ops.hashscan import (  # noqa: F401  (the plain scan, re-exported)
     FIELDS,
-    _kmer_valid,
     gap_scan_core,
     hash_probe,
     hash_scan,
+    hash_scan_ref,
+    kmers_ref,
 )
-from ..ops.kmerize import assemble_kmers, canonical_select, rolling_pack_u32
 
 # sentinel code for non-ACGT / out-of-window positions in uint8 inputs
 SENTINEL = np.uint8(hashscan.SENTINEL)
@@ -53,26 +53,15 @@ def score_windows_core(codes, valid, win_len, lookup_fn, *, k: int,
     window; win_len: (B,) int64 window lengths. ``lookup_fn`` maps
     (hi, lo) query tensors to int64 counts.
 
-    Returns a dict of (B,) int64: total, observed, variations, inner,
-    left, right, count_sum, eff_length."""
-    n_out = codes.shape[1] - PAD_MARGIN
-    w32, rcw32 = rolling_pack_u32(codes)
-    fwd_hi, fwd_lo, rc_hi, rc_lo = assemble_kmers(w32, rcw32, k, n_out)
-    if both_strands:
-        hi, lo = canonical_select(fwd_hi, fwd_lo, rc_hi, rc_lo)
-    else:
-        hi, lo = fwd_hi, fwd_lo
-    counts = lookup_fn(hi, lo)
-
-    present_raw = counts >= min_count
-    present_pad = torch.cat(
-        [present_raw, present_raw.new_zeros((codes.shape[0], PAD_MARGIN))],
-        dim=1,
-    )
-    res = gap_scan_core(valid, present_pad, win_len, k=k)
-    present = _kmer_valid(valid, win_len, k, n_out) & present_raw
-    res["count_sum"] = torch.where(present, counts, 0).sum(dim=1)
-    return res
+    The two plain versions composed on the sentinel-coded rows: the
+    k-mers of ``hash_probe_ref`` looked up by ``lookup_fn``, then
+    ``hash_scan_ref``. Returns a dict of (B,) int64: total, observed,
+    variations, inner, left, right, count_sum, eff_length."""
+    u8 = torch.where(valid, codes, int(SENTINEL))
+    hi, lo = kmers_ref(u8, k=k, both_strands=both_strands)
+    res = hash_scan_ref(u8, lookup_fn(hi, lo), win_len, k=k,
+                        min_count=min_count)
+    return dict(zip(FIELDS, res))
 
 
 def _score_u8_batch(u8, win_len, tbl, *, k, min_count, both_strands):

@@ -92,36 +92,13 @@ def load_all(names):
         return list(ex.map(load, names))
 
 
-def _pjoin_lib():
-    lib = load("pjoin")
-    fn = lib.kcf_pjoin_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p
-    ]
-    return fn
-
-
-def launch_pjoin(qh, ql, th, tl, tc, out, P, Tq, Tt, packed):
-    """Launch csrc/pjoin.cu on the current stream of ``out``'s device.
-    Operands are checked by the caller (ops/pjoin.py::pjoin_join)."""
-    fn = _pjoin_lib()
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = fn(
-            qh.data_ptr(), ql.data_ptr(), th.data_ptr(), tl.data_ptr(),
-            tc.data_ptr(), out.data_ptr(), P, Tq, Tt, int(packed), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"pjoin kernel launch failed: CUDA error {rc}")
-
-
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 # entry point -> (its source in csrc, its argument types: tensors, then
 # sizes, then the stream; sizes that can pass 2^31 are c_longlong)
 _ENTRIES = {
+    "kcf_pjoin_launch": ("pjoin", [*[_P] * 6, _I, _I, _I, _I, _P]),
     "kcf_gapscan_join": ("gapscan", [_P, _LL, *[_P] * 8, _LL, _I, _I, _I,
                                      _LL, _P]),
     "kcf_gapscan_rows": ("gapscan", [*[_P] * 6, _LL, _I, _I, _I, _P]),
@@ -132,16 +109,27 @@ _ENTRIES = {
 }
 
 
+_bound = {}  # entry point -> its ctypes function, argument types set
+
+
+def _entry(entry):
+    fn = _bound.get(entry)
+    if fn is None:
+        source, argtypes = _ENTRIES[entry]
+        fn = getattr(load(source), entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _bound[entry] = fn
+    return fn
+
+
 def launch(entry, *args):
-    """Call one C entry point of csrc/gapscan.cu or csrc/hashscan.cu on the
-    current stream of the last tensor argument's device (the output).
-    Tensors pass as their pointers, None as a null pointer; the stream is
-    appended. Operands are checked by the caller (ops/gapscan.py,
-    ops/hashscan.py)."""
-    source, argtypes = _ENTRIES[entry]
-    fn = getattr(load(source), entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
+    """Call one C entry point of csrc/ (``_ENTRIES``) on the current
+    stream of the last tensor argument's device (the output). Tensors
+    pass as their pointers, None as a null pointer; the stream is
+    appended. Each entry point is bound once. Operands are checked by
+    the caller (ops/pjoin.py, ops/gapscan.py, ops/hashscan.py)."""
+    fn = _entry(entry)
     out = [a for a in args if isinstance(a, torch.Tensor)][-1]
     vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(out.device):

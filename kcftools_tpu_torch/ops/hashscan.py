@@ -48,8 +48,9 @@ FIELDS = (
 SENTINEL = 4  # the code of a non-ACGT or out-of-window byte
 TABLE_WIDTH = 12  # uint32 words of a bucket row: hi x 4 | lo x 4 | cnt x 4
 MAX_K = 32
-_CHUNK = 1024  # positions of a chunk summary of the scan kernel
-_SUM_WORDS = 5  # int64 words of a stored chunk summary (40 bytes)
+_CHUNK = 1024  # positions of a chunk of the scan kernel (a warp's)
+_SCAN_WARPS = 16  # chunks a block of the scan kernel spans at most
+_SUM_WORDS = 5  # int64 words of a stored block summary (40 bytes)
 
 
 # -- the plain versions ---------------------------------------------------
@@ -132,23 +133,24 @@ def gap_scan_core(valid, present, win_len, *, k: int):
     }
 
 
+def kmers_ref(u8, *, k: int, both_strands: bool):
+    """The (hi, lo) int64 halves of the k-mer at every start of the
+    rows (the canonical one with ``both_strands``), from the rolling
+    packs; invalid bytes read as code 0."""
+    codes = torch.where(u8 < SENTINEL, u8, 0).long()
+    w32, rcw32 = rolling_pack_u32(codes)
+    parts = assemble_kmers(w32, rcw32, k, u8.shape[1] - PAD_MARGIN)
+    return canonical_select(*parts) if both_strands else parts[:2]
+
+
 def hash_probe_ref(u8, win_len, tbl, *, k: int, both_strands: bool,
                    nb_total=None, shard: int = 0):
-    """Plain version of ``hash_probe``: the rolling packs, canonical
-    (hi, lo) k-mers and ``table_lookup`` at every start, masked to the
-    valid k-mers."""
-    valid = u8 < SENTINEL
-    codes = torch.where(valid, u8, 0).long()
-    n_out = u8.shape[1] - PAD_MARGIN
-    w32, rcw32 = rolling_pack_u32(codes)
-    fwd_hi, fwd_lo, rc_hi, rc_lo = assemble_kmers(w32, rcw32, k, n_out)
-    if both_strands:
-        hi, lo = canonical_select(fwd_hi, fwd_lo, rc_hi, rc_lo)
-    else:
-        hi, lo = fwd_hi, fwd_lo
+    """Plain version of ``hash_probe``: ``kmers_ref`` and
+    ``table_lookup`` at every start, masked to the valid k-mers."""
+    hi, lo = kmers_ref(u8, k=k, both_strands=both_strands)
     counts = table_lookup(hi, lo, tbl, nb_total=nb_total, shard=shard)
-    counts = torch.where(_kmer_valid(valid, win_len, k, n_out), counts, 0)
-    return _as_i32(counts)
+    kv = _kmer_valid(u8 < SENTINEL, win_len, k, hi.shape[1])
+    return _as_i32(torch.where(kv, counts, 0))
 
 
 def hash_scan_ref(u8, counts, win_len, *, k: int, min_count: int):
@@ -188,6 +190,16 @@ def _check_rows(what, u8, win_len, k, *others):
     if not 1 <= k <= MAX_K:
         raise ValueError(f"{what}: k = {k} outside 1..{MAX_K}")
     return B, Lp, Lp - PAD_MARGIN
+
+
+def _scan_scratch(B, Lp):
+    """int64 words of the scan kernel's scratch: where a row spans more
+    than one block (more than _SCAN_WARPS chunks), each block's summary
+    and an int32 ticket a row; else one unused word."""
+    n_chunks = -(-Lp // _CHUNK)
+    if n_chunks <= _SCAN_WARPS:
+        return 1
+    return B * -(-n_chunks // _SCAN_WARPS) * _SUM_WORDS + -(-B // 2)
 
 
 def _pow2(x):
@@ -253,9 +265,9 @@ def hash_scan(u8, counts, win_len, *, k: int, min_count: int):
     out = torch.empty((len(FIELDS), B), dtype=torch.int64, device=u8.device)
     if B == 0:
         return out
-    chunks = torch.empty(B * -(-Lp // _CHUNK) * _SUM_WORDS,
-                         dtype=torch.int64, device=u8.device)
-    launch("kcf_hash_scan", u8, counts, win_len, chunks, out, B, Lp, n_out,
+    scratch = torch.empty(_scan_scratch(B, Lp), dtype=torch.int64,
+                          device=u8.device)
+    launch("kcf_hash_scan", u8, counts, win_len, scratch, out, B, Lp, n_out,
            int(k), int(min_count))
     hash_scan.launches += 1
     return out

@@ -282,10 +282,11 @@ def pjoin_join(qh, ql, th, tl, tc, packed):
         raise RuntimeError(f"pjoin_join: no kernel for device {dev}")
     if P * Tq == 0 or Tt == 0:
         return torch.zeros((P, Tq), dtype=torch.int32, device=dev)
-    from ._kernels import launch_pjoin
+    from ._kernels import launch
 
     out = torch.empty((P, Tq), dtype=torch.int32, device=dev)
-    launch_pjoin(qh, ql, th, tl, tc, out, P, Tq, Tt, packed)
+    launch("kcf_pjoin_launch", qh, ql, th, tl, tc, out, P, Tq, Tt,
+           int(packed))
     if packed:
         pjoin_join.launches_packed += 1
     else:

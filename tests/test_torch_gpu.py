@@ -654,3 +654,130 @@ def test_hash_scan_kernel_long_rows(cuda_device, no_plain_hash):
     got = ths.hash_scan(*args, k=k, min_count=2)
     assert torch.equal(got, no_plain_hash["hash_scan_ref"](*args, k=k,
                                                            min_count=2))
+
+
+def _feature_rows(seed, B, Lp, k, lo=None):
+    """(u8, win_len) of a padded feature batch: win_len uniform in [lo,
+    Lp - 32], or, without ``lo``, in [0, Lp - 32] with k - 1, k and Lp -
+    32 among them; random bases with ~1% N and an N run, the sentinel
+    past each window."""
+    rng = np.random.default_rng(seed)
+    wl = rng.integers(lo or 0, Lp - 31, B).astype(np.int64)
+    if lo is None:
+        wl[:3] = [k - 1, k, Lp - 32]
+    u8 = rng.integers(0, 4, (B, Lp)).astype(np.uint8)
+    u8[rng.random((B, Lp)) < 0.01] = 4
+    u8[:, Lp // 3 : Lp // 3 + 40] = 4
+    u8[np.arange(Lp)[None, :] >= wl[:, None]] = 4
+    return u8, wl
+
+
+def _both_exact(dev, plain, u8, wl, k, min_count=2):
+    """hash_probe against a table of 70% of the rows' k-mers, then
+    hash_scan on its counts, each one launch and bit-exact against its
+    plain version; returns the counts."""
+    keys, counts = thc.table_keys(k, u8, wl, k, True)
+    counts = _probe_exact(dev, plain, u8, wl,
+                          build_table(keys, counts, k).tbl, k=k,
+                          both_strands=True)
+    u8_d, wl_d = _on(dev, u8, wl)
+    before = ths.hash_scan.launches
+    got = ths.hash_scan(u8_d, counts, wl_d, k=k, min_count=min_count)
+    assert ths.hash_scan.launches == before + 1
+    assert torch.equal(got, plain["hash_scan_ref"](u8_d, counts, wl_d, k=k,
+                                                   min_count=min_count))
+    return counts
+
+
+@pytest.mark.cuda
+def test_hash_kernels_long_feature_batch(cuda_device, no_plain_hash):
+    """The batch of the longest features: 4 rows of 2^20 bytes (1,024
+    chunks a row, 64 scan blocks a row), win_len up to 2^20 - 32."""
+    u8, wl = _feature_rows(5, 4, 1 << 20, 31, lo=1 << 19)
+    counts = _both_exact(cuda_device, no_plain_hash, u8, wl, 31)
+    assert int((counts != 0).sum()) > 500_000
+
+
+# row lengths: one chunk (64 and 1,024 bytes), 16 chunks (one block), 17
+# chunks (two blocks, the second of one chunk), 33 chunks (three blocks)
+ROW_LENGTHS = [64, 1024, 16 * 1024, 16 * 1024 + 64, 33 * 1024 - 32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lp", ROW_LENGTHS)
+def test_hash_kernels_row_lengths(cuda_device, no_plain_hash, Lp):
+    """Rows of one chunk up to rows spanning three scan blocks."""
+    u8, wl = _feature_rows(Lp, 24, Lp, 31)
+    _both_exact(cuda_device, no_plain_hash, u8, wl, 31)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 31, 32])
+def test_hash_kernels_stretch_edges(cuda_device, no_plain_hash, k):
+    """The last valid start (win_len - k) one before, at and one after
+    the probe's stretch and warp-tile edges, and at n_out - 1."""
+    u8, wl = thc.stretch_edges_case(k, k)
+    _both_exact(cuda_device, no_plain_hash, u8, wl, k)
+
+
+@pytest.mark.cuda
+def test_hash_kernels_unaligned_operands(cuda_device, no_plain_hash):
+    """Rows that start off a 16-byte granule (a view at byte 3) with
+    n_out % 4 != 0, and counts off 16 bytes: the probe's four-byte
+    stores and the scan's one-count loads."""
+    k = 31
+    u8, wl = thc.rows_case(9, k, thc.LP + 5)
+    keys, counts = thc.table_keys(9, u8, wl, k, True)
+    tbl = torch.from_numpy(build_table(keys, counts, k).tbl.view(
+        np.int32)).to(cuda_device)
+    flat = torch.zeros(u8.size + 3, dtype=torch.uint8, device=cuda_device)
+    flat[3:] = torch.from_numpy(u8.ravel()).to(cuda_device)
+    rows = flat[3:].view(u8.shape)
+    (wl_d,) = _on(cuda_device, wl)
+    got = ths.hash_probe(rows, wl_d, tbl, k=k, both_strands=True)
+    assert torch.equal(got, no_plain_hash["hash_probe_ref"](
+        rows, wl_d, tbl, k=k, both_strands=True))
+    cbuf = torch.zeros(got.numel() + 1, dtype=torch.int32,
+                       device=cuda_device)
+    cbuf[1:] = got.view(-1)
+    cnt = cbuf[1:].view(got.shape)
+    out = ths.hash_scan(rows, cnt, wl_d, k=k, min_count=2)
+    assert torch.equal(out, no_plain_hash["hash_scan_ref"](
+        rows, cnt, wl_d, k=k, min_count=2))
+
+
+def _scan_inputs(dev, seed, Lp=17 * 1024 + 32, B=16):
+    rng = np.random.default_rng(seed)
+    u8, wl = _feature_rows(seed, B, Lp, 31)
+    counts = rng.integers(0, 5, (B, Lp - 32)).astype(np.int32)
+    return _on(dev, u8, counts, wl)
+
+
+@pytest.mark.cuda
+def test_hash_scan_back_to_back(cuda_device, no_plain_hash):
+    """Three scans of rows spanning two blocks on different inputs, with
+    no synchronisation between them: each call's row tickets start at
+    zero."""
+    ins = [_scan_inputs(cuda_device, s) for s in (1, 2, 3)]
+    outs = [ths.hash_scan(*a, k=31, min_count=2) for a in ins]
+    torch.cuda.synchronize()
+    for a, got in zip(ins, outs):
+        assert torch.equal(got, no_plain_hash["hash_scan_ref"](
+            *a, k=31, min_count=2))
+
+
+@pytest.mark.cuda
+def test_hash_scan_two_streams(cuda_device, no_plain_hash):
+    """Scans on two streams at once, each on its own inputs."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    ins = [_scan_inputs(cuda_device, s) for s in (4, 5)]
+    outs = []
+    for st, a in zip(streams, ins):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append([ths.hash_scan(*a, k=31, min_count=2)
+                         for _ in range(3)])
+    torch.cuda.synchronize()
+    for a, got in zip(ins, outs):
+        want = no_plain_hash["hash_scan_ref"](*a, k=31, min_count=2)
+        assert all(torch.equal(g, want) for g in got)

@@ -44,13 +44,18 @@ from .test_torch_gapscan import (
     word_sum,
 )
 from .torch_hash_cases import (
+    CHUNK,
     KS,
+    LP,
     PAD,
+    STRETCHES,
     counts_case,
     hand_table,
     kernel_kmers,
     kmer_valid,
+    rolling_kmers,
     rows_case,
+    stretch_edges_case,
     table_keys,
 )
 
@@ -115,6 +120,46 @@ def test_probe_model_kmers_match_jax(k, both_strands):
     np.testing.assert_array_equal(lo[ok], jlo[ok])
     if k in (16, 32):
         assert hi[ok].max() >= 1 << 31  # the top bit of a full half
+
+
+# (Lp, the rows' alignment): whole stretches, and a row of 3,141 starts
+# (ending mid-stretch) at an odd alignment, so tiles start off granules
+ROLL_LAYOUTS = [(LP, 0), (LP + 5, 7)]
+
+
+@functools.lru_cache(maxsize=None)
+def _roll_case(k, both_strands, Lp):
+    """The edge rows and the stretch-edge rows, their valid k-mers and
+    the JAX kmerize keys (hi << 2 (k - 16) | lo) there."""
+    u8, wl = rows_case(k + 2, k, Lp)
+    eu8, ewl = stretch_edges_case(k + 3, k, Lp)
+    u8, wl = np.concatenate([u8, eu8]), np.concatenate([wl, ewl])
+    valid = kmer_valid(u8, wl, k)
+    jhi, jlo = (np.asarray(x).astype(np.uint64)
+                for x in _jax_kmers(u8, k, both_strands))
+    jkey = (jhi << np.uint64(2 * max(k - 16, 0))) | jlo
+    return u8, wl, valid, jkey
+
+
+@pytest.mark.parametrize("stretch", STRETCHES)
+@pytest.mark.parametrize("layout", ROLL_LAYOUTS,
+                         ids=[f"Lp{lp}-align{a}" for lp, a in ROLL_LAYOUTS])
+@pytest.mark.parametrize("both_strands", [True, False], ids=["both", "fwd"])
+@pytest.mark.parametrize("k", KS)
+def test_rolling_build_matches_jax(k, both_strands, layout, stretch):
+    """The probe's rolling build (warp tiles staged as aligned granules,
+    a lane's stretch of starts built from k - 1 bytes of prologue and
+    one byte a start, a run count for validity) gives JAX kmerize's
+    canonical (or forward) k-mer at exactly the valid starts: k-mers
+    across stretch and tile edges, N runs shorter and longer than k,
+    rows ending mid-stretch, the last valid start beside every stretch
+    and tile edge, random bytes around the rows."""
+    Lp, align = layout
+    u8, wl, valid, jkey = _roll_case(k, both_strands, Lp)
+    keys, live = rolling_kmers(u8, wl, k, both_strands, stretch, align)
+    np.testing.assert_array_equal(live, valid)
+    np.testing.assert_array_equal(keys[valid], jkey[valid])
+    assert valid.sum() > 10_000
 
 
 @pytest.mark.parametrize("both_strands", [True, False], ids=["both", "fwd"])
@@ -216,10 +261,10 @@ def test_hash_probe_shards_match_jax_sharded_lookup(t_axis):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_scan(k, min_count):
-    """JAX ``score_windows_core`` over rows_case(k) fed counts_case's
-    counts through its ``lookup_fn``: (8, B) int64."""
-    u8, wl = rows_case(k, k)
+def _jax_scan(k, min_count, Lp=LP):
+    """JAX ``score_windows_core`` over rows_case(k, k, Lp) fed
+    counts_case's counts through its ``lookup_fn``: (8, B) int64."""
+    u8, wl = rows_case(k, k, Lp)
     counts = counts_case(k + min_count, u8)
     valid = u8 < 4
     res = jpl.score_windows_core(
@@ -344,6 +389,172 @@ def test_scan_model_matches_jax(chunk, k, min_count):
                               chunk).fields()
                     for r in range(u8.shape[0])], np.int64).T
     np.testing.assert_array_equal(got, _jax_scan(k, min_count))
+
+
+M64 = (1 << 64) - 1
+
+
+def inv4(x):
+    """The kernel's inv4: __vcmpgeu4 against 4 (0xff a byte >= 4), the
+    bytes' top bits gathered by one multiply into bits 0-3."""
+    m = 0
+    for b in range(4):
+        if (x >> 8 * b) & 0xFF >= 4:
+            m |= 0xFF << 8 * b
+    return (((m & 0x80808080) * 0x00204081) & FULL) >> 28
+
+
+class OneLaunchModel:
+    """The one-launch scan kernel over a batch, as it reads memory: the
+    rows lie in one buffer from byte ``align`` (mod 16) with random bytes
+    around them. A lane's 32 bytes arrive as the aligned 16-byte granules
+    that hold them (one that starts past the row reads as invalid; the
+    bytes past the row are masked), each turned into 16 invalid bits by
+    ``inv4``; a lane's valid starts are the AND of k shifts of its valid
+    bits and the next lane's, by doubling; in step j a lane reads the four
+    counts at 128 j + 4 lane where one of them is a valid k-mer (all four
+    with 16-byte loads: checked to lie in the row), and its nibble of
+    presence reaches the word's owner lane by the kernel's shuffles. A
+    block spans min(chunks, ``warps``) chunks, a warp a chunk, combined
+    in warp order; a row of several blocks stores each block's summary,
+    and the block that draws the last ticket combines them in position
+    order, 32 a step."""
+
+    def __init__(self, u8, counts, win_len, k, min_count, warps, align,
+                 seed=0):
+        B, self.Lp = u8.shape
+        self.n_out = self.Lp - PAD
+        self.k, self.min_count = k, min_count
+        self.counts, self.win_len = counts.astype(np.int64), win_len
+        rng = np.random.default_rng(seed)
+        self.mem = rng.integers(0, 256, 16 + align + B * self.Lp + 64,
+                                dtype=np.int64).astype(np.uint8)
+        self.base = 16 + align
+        self.mem[self.base : self.base + B * self.Lp] = u8.ravel()
+        self.vec = self.n_out % 4 == 0
+        self.n_chunks = -(-self.Lp // CHUNK)
+        self.wpb = min(self.n_chunks, warps)
+        self.bpr = -(-self.n_chunks // self.wpb)
+
+    def inv16(self, g):
+        w = self.mem[g : g + 16].view("<u4")
+        return sum(inv4(int(x)) << 4 * i for i, x in enumerate(w))
+
+    def inv_word(self, row, pos):
+        if pos >= self.Lp:
+            return FULL
+        row0 = self.base + row * self.Lp
+        off = (row0 + pos) & 15
+        g = row0 + pos - off
+        end = row0 + self.Lp
+        m = self.inv16(g)
+        m |= (self.inv16(g + 16) if g + 16 < end else 0xFFFF) << 16
+        if off:
+            m |= (self.inv16(g + 32) if g + 32 < end else 0xFFFF) << 32
+        inv = (m >> off) & FULL
+        left = self.Lp - pos
+        if left < 32:
+            inv |= (FULL << left) & FULL
+        return inv
+
+    def chunk_sum(self, row, lo):
+        """(summary, eff) of the warp's chunk from position lo."""
+        k = self.k
+        inv = [self.inv_word(row, lo + 32 * ln) for ln in range(32)]
+        nxt = inv[1:] + [self.inv_word(row, lo + CHUNK)]
+        first = 1 if lo == 0 else int(self.mem[self.base + row * self.Lp
+                                               + lo - 1] >= 4)
+        before = [first] + [w >> 31 for w in inv[:-1]]
+        lim = min(self.n_out - 1, int(self.win_len[row]) - k)
+        kv, eff = [], 0
+        for ln in range(32):
+            v = ~((nxt[ln] << 32) | inv[ln]) & M64
+            acc, at, b = M64, 0, 1
+            while b <= k:
+                if k & b:
+                    acc &= v >> at
+                    at += b
+                v &= v >> b
+                b <<= 1
+            av = acc & FULL
+            starts = av & (((inv[ln] << 1) & FULL) | before[ln])
+            eff += popc(av) + (k - 1) * popc(starts)
+            d = lim - (lo + 32 * ln)
+            kv.append(av & (FULL if d >= 31 else
+                            ((2 << d) - 1 if d >= 0 else 0)))
+        pw, csum = [0] * 32, [0] * 32
+        for j in range(8):
+            g = []
+            for ln in range(32):
+                nk = (kv[4 * j + ln // 8] >> 4 * (ln & 7)) & 15
+                q = lo + 128 * j + 4 * ln
+                nib = 0
+                if nk and self.vec:
+                    assert q + 3 < self.n_out  # a 16-byte load in the row
+                for b in range(4):
+                    if nk >> b & 1:
+                        c = int(self.counts[row, q + b])
+                        if c >= self.min_count:
+                            nib |= 1 << b
+                            csum[ln] += c
+                g.append(nib << 4 * (ln & 7))
+            words = [functools.reduce(int.__or__, g[8 * m : 8 * m + 8])
+                     for m in range(4)]
+            for ln in range(4 * j, 4 * j + 4):
+                pw[ln] = words[ln & 3]
+        lanes = [word_sum(pw[ln], kv[ln], k)[:6] + (csum[ln],)
+                 for ln in range(32)]
+        return tree(lanes, k), eff
+
+    def block_sum(self, row, span):
+        parts, eff = [EMPTY] * 32, 0
+        for w in range(self.wpb):
+            c = span * self.wpb + w
+            if c < self.n_chunks:
+                parts[w], e = self.chunk_sum(row, c * CHUNK)
+                eff += e
+        return tree(parts, self.k), eff
+
+    def row_fields(self, row):
+        """The row's eight fields: its blocks' summaries (stored by each
+        block in any order) combined in position order, 32 a step."""
+        blocks = [self.block_sum(row, s) for s in range(self.bpr)]
+        t, eff = EMPTY, 0
+        for c in range(0, self.bpr, 32):
+            grp = [b[0] for b in blocks[c : c + 32]]
+            t = combine(t, tree(grp + [EMPTY] * (32 - len(grp)), self.k),
+                        self.k)
+            eff += sum(b[1] for b in blocks[c : c + 32])
+        nval, obs, lead, trail, var, dist, csum = t
+        has = obs > 0
+        return [nval, obs,
+                var + (lead > 0) + (trail > 0) if has else int(nval > 0),
+                dist, lead if has else 0, trail if has else nval, csum, eff]
+
+
+# (Lp, the rows' alignment): 4 chunks; 4 chunks with n_out % 4 != 0 (the
+# counts' one-at-a-time loads) at an odd alignment; 18 chunks
+SCAN_LAYOUTS = [(LP, 0), (LP + 5, 3), (17 * CHUNK + 64, 0)]
+
+
+@pytest.mark.parametrize("k,min_count", MODEL_CASES,
+                         ids=[f"k{k}-mc{mc}" for k, mc in MODEL_CASES])
+@pytest.mark.parametrize("layout", SCAN_LAYOUTS,
+                         ids=[f"Lp{lp}-align{a}" for lp, a in SCAN_LAYOUTS])
+@pytest.mark.parametrize("warps", [1, 2, 16])
+def test_one_launch_scan_model_matches_jax(warps, layout, k, min_count):
+    """The one-launch kernel's decomposition (16-byte granules, inv4
+    byte compares, AND by doubling, counts in aligned fours, presence by
+    shuffles, block spans of 1, 2 and up to 16 chunks, the last block's
+    combine in position order) equals JAX ``gap_scan_core`` and the count
+    sum."""
+    Lp, align = layout
+    u8, wl = rows_case(k, k, Lp)
+    counts = counts_case(k + min_count, u8)
+    model = OneLaunchModel(u8, counts, wl, k, min_count, warps, align)
+    got = np.array([model.row_fields(r) for r in range(u8.shape[0])],
+                   np.int64).T
+    np.testing.assert_array_equal(got, _jax_scan(k, min_count, Lp))
 
 
 # -- the batch, and the argument checks -------------------------------------

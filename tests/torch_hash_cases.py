@@ -1,16 +1,18 @@
 """Operands of the hash engine's scoring (kcftools_tpu_torch/ops/
 hashscan.py) that reach every path of its kernels (csrc/hashscan.cu:
-1,024-start probe tiles, 1,024-position scan chunks of 32-bit words):
-rows longer than a chunk with an N run across a chunk edge, windows of
-length 0, k - 1, k and Lp - 32, an all-N window, N at the first and last
-base, ACGT runs of exactly k and k - 1 bases, bytes other than 4 that are
-invalid, bases past win_len up to the row's end; counts that sit around
-min_count, are all 0, reach 2^31 and wrap; tables built from the rows'
-k-mers, and hand-made ones of 1 and 2 buckets holding a key in both of
-its buckets (counts that wrap past 2^32) and in two slots of one bucket.
-numpy only: shared by the CPU tests (the port's plain versions and
-models of the kernels against the JAX package), the card tests and
-chip_smoke.py (the kernels against the plain versions).
+probe stretches of STRETCH starts a lane in warp tiles of 32 stretches,
+1,024-position scan chunks of 32-bit words): rows longer than a chunk
+with an N run across a chunk edge, windows of length 0, k - 1, k and
+Lp - 32, an all-N window, N at the first and last base, ACGT runs of
+exactly k and k - 1 bases, bytes other than 4 that are invalid, bases
+past win_len up to the row's end, the last valid start at and beside a
+stretch's and a warp tile's edge; counts that sit around min_count, are
+all 0, reach 2^31 and wrap; tables built from the rows' k-mers, and
+hand-made ones of 1 and 2 buckets holding a key in both of its buckets
+(counts that wrap past 2^32) and in two slots of one bucket. numpy
+only: shared by the CPU tests (the port's plain versions and models of
+the kernels against the JAX package), the card tests and chip_smoke.py
+(the kernels against the plain versions).
 """
 
 import numpy as np
@@ -22,6 +24,8 @@ KS = (11, 16, 17, 31, 32)
 CHUNK = 1024
 LP = 3 * CHUNK + 96  # three whole chunks and a partial one, plus PAD
 MIN_COUNTS = (0, 1, 3)
+STRETCH = 4  # consecutive starts a lane of the probe owns (kStretch)
+STRETCHES = (STRETCH, 8, 16)  # the rolling build's model runs at each
 
 
 def rows_case(seed, k, Lp=LP):
@@ -61,6 +65,27 @@ def rows_case(seed, k, Lp=LP):
     add(int(rng.integers(k, n_out)))
     add(int(rng.integers(k, n_out)))
     return np.stack(rows), np.array(lens, np.int64)
+
+
+def stretch_edges_case(seed, k, Lp=LP, stretches=STRETCHES):
+    """(u8, win_len): one row for each last valid start (win_len - k)
+    one before, at and one after the first and third stretch edge and
+    the first two warp-tile edges (32 stretches) of each stretch size,
+    and at n_out - 2 and n_out - 1; random bases with ~1% N, the
+    sentinel past the window in every other row and bases there in the
+    rest."""
+    rng = np.random.default_rng(seed)
+    n_out = Lp - PAD
+    edges = {e + d for s in stretches for e in (s, 3 * s, 32 * s, 64 * s)
+             for d in (-1, 0, 1)}
+    lasts = sorted(x for x in edges | {n_out - 2, n_out - 1}
+                   if 0 <= x < n_out)
+    rows = rng.integers(0, 4, (len(lasts), Lp)).astype(np.uint8)
+    rows[rng.random(rows.shape) < 0.01] = 4
+    lens = np.array(lasts, np.int64) + k
+    for r in range(0, len(lasts), 2):
+        rows[r, lens[r]:] = 4
+    return rows, lens
 
 
 def counts_case(seed, u8):
@@ -104,6 +129,59 @@ def kernel_kmers(u8, k, both_strands):
     hi = (key >> n_lo).astype(np.uint32)
     lo = (key & ((np.uint64(1) << n_lo) - np.uint64(1))).astype(np.uint32)
     return hi, lo, ~bad
+
+
+def rolling_kmers(u8, win_len, k, both_strands, stretch=STRETCH, align=0):
+    """The probe kernel's rolling k-mer build, in numpy, every lane of
+    every warp tile at once. The rows lie in one buffer from byte
+    ``align`` (mod 16) with random bytes around them; a warp tile of 32
+    x ``stretch`` starts is staged as the aligned 16-byte granules that
+    hold its bytes and the k - 1 after it (a granule that starts past
+    the row stages zeros; one that starts inside it brings the next
+    row's bytes, or the buffer's, past the row); a lane reads k - 1
+    bytes of prologue from its stretch's first start, then shifts in one
+    byte a start: f = (f << 2 | c) & kmask, r = r >> 2 | (3 - c) << 2(k -
+    1), and a count of consecutive bases that resets at any byte >= 4. A
+    start is live where the count reaches k, it is at most win_len - k
+    and below n_out. Returns (keys uint64: min(f, r), or f, where live;
+    live bool), both (B, Lp - PAD)."""
+    B, Lp = u8.shape
+    n = Lp - PAD
+    tile = 32 * stretch
+    stage = tile + 48  # kStage: up to 15 bytes before, k - 1 <= 31 after
+    rng = np.random.default_rng(Lp + align)
+    mem = rng.integers(0, 256, 16 + align + B * Lp + 64).astype(np.uint8)
+    mem[16 + align : 16 + align + B * Lp] = u8.ravel()
+    kmask = np.uint64((1 << (2 * k)) - 1)
+    up = np.uint64(2 * (k - 1))
+    two, three = np.uint64(2), np.uint64(3)
+    keys = np.zeros((B, n), np.uint64)
+    live = np.zeros((B, n), bool)
+    s0 = np.arange(0, n, stretch)  # every lane's first start
+    lo = s0 // tile * tile  # its warp tile's
+    for row in range(B):
+        row0 = 16 + align + row * Lp
+        off = (row0 + lo) & 15  # the tile's first byte in its granules
+        g0 = row0 + lo - off
+        f = np.zeros(s0.shape, np.uint64)
+        r = np.zeros(s0.shape, np.uint64)
+        run = np.zeros(s0.shape, np.int64)
+        for u in range(k - 1 + stretch):
+            p = off + (s0 - lo) + u  # the byte's place in the staged tile
+            assert (p < stage).all()
+            granule = g0 + p // 16 * 16
+            c = np.where(granule < row0 + Lp, mem[g0 + p], 0).astype(
+                np.uint64)
+            run = np.where(c < 4, run + 1, 0)
+            f = ((f << two) | (c & three)) & kmask
+            r = (r >> two) | ((~c & three) << up)
+            if u >= k - 1:
+                s = s0 + u - (k - 1)
+                ok = (run >= k) & (s <= win_len[row] - k) & (s < n)
+                key = np.minimum(f, r) if both_strands else f
+                keys[row, s[ok]] = key[ok]
+                live[row, s[ok]] = True
+    return keys, live
 
 
 def kmer_valid(u8, win_len, k):
