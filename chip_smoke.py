@@ -17,12 +17,18 @@ prints the kernels' record with no launch counts):
                 main path's (P = 2^16 partitions, Tq = Tt = 1024), on
                 operands with duplicate keys, wrapping uint32 sums and the
                 all-ones key; the window scan in its three modes on the
-                edge cases of tests/torch_gapscan_cases.py and at the main
-                shapes (the JOIN mode over one 2^24-position slab and over
-                the main path's own 4 slabs of 10,485,760 positions in one
-                launch; the ROWS mode over 3 rows of the dprefix slab,
-                SCAN_ROWS_N positions; the RUNS mode over the native run
-                streams of the same rows; 4,970-position tiling windows).
+                edge cases of tests/torch_gapscan_cases.py (the ROWS and
+                RUNS modes also on its long cases: groups of 1, 8 and 9
+                rows, windows past 8,192 positions, multi-segment streams)
+                and at the main shapes (the JOIN mode over one 2^24-position
+                slab and over the main path's own 4 slabs of 10,485,760
+                positions in one launch; the ROWS mode over 3 rows of the
+                dprefix slab, SCAN_ROWS_N positions; the RUNS mode over the
+                native run streams of the same rows; 4,970-position tiling
+                windows), then both dprefix modes at a full group
+                (GROUP_ROWS x GROUP_N: 8 rows of 2^26 positions) in three
+                window layouts (-w 5000 tiling, -p 2500 sliding, feature
+                windows of 1-200 kb, unsorted and overlapping).
                 Outputs must be bit-identical; at the main shapes each
                 kernel's time twice: ``ms``, a wrapper call's (CUDA events
                 around 20 calls, the wrapper's host work included), and
@@ -137,6 +143,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (80 GB HBM3), NVIDIA's data sheet
 DJOIN_SLAB = 1 << 24  # the device join's default slab (positions)
 SCAN_WIN = 5000 - K + 1  # k-mer positions of a -w 5000 window
 SCAN_ROWS_N = 39 << 20  # the dprefix slab of the 40 Mbp slice (pos_pad)
+# a full dprefix group: KCFTOOLS_DEVICE_BATCH rows of one default slab
+# (KCFTOOLS_DPREFIX_SLAB), under three window layouts: -w 5000 tiling,
+# -p 2500 sliding, and feature windows (transcripts of genes spaced
+# FEATURE_GAP apart, genes of 1-200 kb log-uniform, 1-3 transcripts each,
+# unsorted and overlapping)
+GROUP_ROWS, GROUP_N = 8, 1 << 26
+GROUP_LAYOUTS = ("tiling", "sliding", "feature")
+SLIDE_STEP = 2500
+FEATURE_GAP = 40_000
 # the device join's slabs of the 40 Mbp slice: one 10 Mbp chromosome each
 MAIN_SLABS, MAIN_SLAB_POS, MAIN_SLAB_SPAN = 4, 10 << 20, 10_000_000 - K + 1
 SECTOR_BYTES = 32  # what one random 4-byte gather moves from device memory
@@ -310,17 +325,23 @@ def _device_ms(fn, iters=20):
     return ms
 
 
-def _times(fn, ref, bound_bytes):
+def _kernel_times(fn, bound_bytes):
     """Three warm-up calls, then {ms (a wrapper call's, host work
-    included), device_ms, plain_ms, bound_ms, bound_by, bound_share (of
+    included), device_ms, bound_ms, bound_by, bound_share (of
     device_ms)}."""
     for _ in range(3):
         fn()
     row = {"ms": _event_ms(fn, 20), "device_ms": _device_ms(fn),
-           "plain_ms": _event_ms(ref, 1),
            "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
            "bound_by": "bytes"}
     row["bound_share"] = row["bound_ms"] / row["device_ms"]
+    return row
+
+
+def _times(fn, ref, bound_bytes):
+    """``_kernel_times`` and the plain version's ms (one call)."""
+    row = _kernel_times(fn, bound_bytes)
+    row["plain_ms"] = _event_ms(ref, 1)
     return row
 
 
@@ -400,15 +421,40 @@ def _snp_presence(g, rows, n, valid, dev):
     return (cs == 0) & valid
 
 
-def _tiling(n, dev, span=None):
-    """SCAN_WIN-position tiling windows over the first ``span`` (default
-    n) positions, padded with [0, 0] entries to a multiple of 1,024 (the
-    layout's window bucket)."""
-    span = n if span is None else span
-    ws = torch.arange(0, span - SCAN_WIN + 1, SCAN_WIN, device=dev)
-    wh = ws + SCAN_WIN - 1
+def _pad_windows(ws, wh, dev):
+    """Window bounds padded with [0, 0] entries to a multiple of 1,024
+    (the layout's window bucket)."""
     pad = torch.zeros(-ws.numel() % 1024, dtype=torch.int64, device=dev)
     return torch.cat([ws, pad]), torch.cat([wh, pad])
+
+
+def _tiling(n, dev, span=None):
+    """SCAN_WIN-position tiling windows over the first ``span`` (default
+    n) positions, padded."""
+    span = n if span is None else span
+    ws = torch.arange(0, span - SCAN_WIN + 1, SCAN_WIN, device=dev)
+    return _pad_windows(ws, ws + SCAN_WIN - 1, dev)
+
+
+def _windows(layout, n, g, dev):
+    """The window bounds of a layout over n positions, padded."""
+    if layout == "tiling":
+        return _tiling(n, dev)
+    if layout == "sliding":
+        ws = torch.arange(0, n - SCAN_WIN + 1, SLIDE_STEP, device=dev)
+        return _pad_windows(ws, ws + SCAN_WIN - 1, dev)
+    genes = n // FEATURE_GAP
+    glen = torch.exp(torch.empty(genes, device=dev).uniform_(
+        float(np.log(1000)), float(np.log(200_000)), generator=g)).long()
+    gs = (torch.rand(genes, generator=g, device=dev) * (n - glen)).long()
+    ntx = torch.randint(1, 4, (genes,), generator=g, device=dev)
+    gene = torch.repeat_interleave(torch.arange(genes, device=dev), ntx)
+    cut = torch.rand((2, gene.numel()), generator=g, device=dev) * 0.1
+    ws = gs[gene] + (cut[0] * glen[gene]).long()
+    wh = gs[gene] + glen[gene] - 1 - (cut[1] * glen[gene]).long()
+    order = torch.randperm(ws.numel(), generator=g, device=dev)
+    # a feature of bases [a, b] holds the k-mer starts [a, b - K + 1]
+    return _pad_windows(ws[order], wh[order] - K + 1, dev)
 
 
 def scan_join_operands(dev, seed, min_count, slabs=1, n=None, span=None):
@@ -447,33 +493,49 @@ def scan_join_operands(dev, seed, min_count, slabs=1, n=None, span=None):
     return args, rest + 4 * n_valid, rest + SECTOR_BYTES * n_valid
 
 
-def scan_rows_operands(dev, seed, rows):
-    """The ROWS mode at the dprefix slab of the slice: ``rows`` presence
-    bitmaps of SCAN_ROWS_N positions. Returns (args, bytes to move)."""
+def scan_rows_operands(dev, seed, rows, n=SCAN_ROWS_N):
+    """The ROWS mode over one dprefix slab: ``rows`` presence bitmaps of
+    n positions (default the slice's slab), tiling windows."""
     from kcftools_tpu_torch.ops.gapscan import _pack_bits
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    n = SCAN_ROWS_N
     valid = _scan_valid(g, n, dev)
     pres = _pack_bits(_snp_presence(g, rows, n, valid, dev))
-    ws, wh = _tiling(n, dev)
-    args = [pres, _pack_bits(valid[None])[0], ws, wh]
-    nbytes = (rows + 1) * n // 8 + (16 + 40 * rows) * ws.numel()
-    return args, nbytes
+    return [pres, _pack_bits(valid[None])[0], *_tiling(n, dev)]
 
 
-def scan_runs_operands(dev, seed, rows):
+def window_bytes(ws, wh, n_bytes):
+    """The bytes of an n_bytes bitmap that lie under the union of the
+    windows (an inverted window's span [wh + 1, ws - 1] included): the
+    only bitmap bytes the scan needs."""
+    lo = torch.minimum(ws, wh + 1).clamp(0, 8 * n_bytes - 1) // 8
+    hi = torch.maximum(wh, ws - 1).clamp(0, 8 * n_bytes - 1) // 8
+    some = torch.maximum(wh, ws - 1) >= torch.minimum(ws, wh + 1)
+    diff = torch.zeros(n_bytes + 1, dtype=torch.int32, device=ws.device)
+    one = torch.ones(int(some.sum()), dtype=torch.int32, device=ws.device)
+    diff.index_add_(0, lo[some], one)
+    diff.index_add_(0, hi[some] + 1, -one)
+    return int((torch.cumsum(diff, 0)[:-1] > 0).sum())
+
+
+def rows_bytes(args):
+    """The bytes the ROWS mode must move: every bitmap read once under
+    the windows, the bounds, the output."""
+    pres, vb, ws, wh = args
+    rows = pres.shape[0]
+    return ((rows + 1) * window_bytes(ws, wh, vb.numel())
+            + (16 + 40 * rows) * ws.numel())
+
+
+def scan_runs_operands(rows_args):
     """The RUNS mode at the same shapes: the absent-run streams that the
     native kcf_bits_to_runs makes of the ROWS mode's presence rows, in
     the dprefix engine's run budget (twice the longest stream, rounded up
-    to 4,096 entries). Returns (args, bytes the function must move: the
-    streams, the valid bitmap, bounds and output; the design floor's
-    bytes: the same plus the decoded bitmaps, the kernel's own scratch,
-    written and read back once)."""
+    to 4,096 entries)."""
     from kcftools_tpu_torch.native import bits_to_runs
 
-    (pres, vb, ws, wh), _ = scan_rows_operands(dev, seed, rows)
-    n = SCAN_ROWS_N
+    pres, vb, ws, wh = rows_args
+    n = 8 * vb.numel()
     vb_host = vb.cpu().numpy()
     streams = []
     for row in pres.cpu().numpy():
@@ -482,20 +544,34 @@ def scan_runs_operands(dev, seed, rows):
             fail("run streams: the encoder overflowed its scratch")
         streams.append((d, ln, n_runs))
     R = max(4096, -(-2 * max(s[2] for s in streams) // 4096) * 4096)
-    dl = np.zeros((rows, 2, R), np.uint8)
+    dl = np.zeros((len(streams), 2, R), np.uint8)
     for r, (d, ln, _n) in enumerate(streams):
         dl[r, 0], dl[r, 1] = d[:R], ln[:R]
-    args = [torch.from_numpy(dl).to(dev), vb, ws, wh]
-    nbytes = 2 * rows * R + n // 8 + (16 + 40 * rows) * ws.numel()
-    return args, nbytes, nbytes + 2 * rows * n // 8
+    return [torch.from_numpy(dl).to(vb.device), vb, ws, wh]
 
 
-def _scan_exact(name, fn, ref, args, kw, what):
+def runs_bytes(args):
+    """(bytes the RUNS mode must move: the streams, the valid bitmap
+    under the windows, bounds and output; the design floor's bytes: the
+    same plus the decoded bitmaps, the kernel's own scratch, written
+    whole and read back under the windows)."""
+    dl, vb, ws, wh = args
+    rows, R = dl.shape[0], dl.shape[2]
+    covered = window_bytes(ws, wh, vb.numel())
+    nbytes = 2 * rows * R + covered + (16 + 40 * rows) * ws.numel()
+    return nbytes, nbytes + rows * (vb.numel() + covered)
+
+
+def _scan_exact(name, fn, ref, args, kw, what, timed=False):
     """One launch bit-exact against the plain version; returns the
     kernel's output and the max abs error (of the uint32 values an int32
-    output holds)."""
+    output holds), and with ``timed`` the plain call's ms (CUDA events)."""
     got = fn(*args, **kw)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     want = ref(*args, **kw)
+    end.record()
     torch.cuda.synchronize()
     g, w = got.long(), want.long()
     if got.dtype == torch.int32:
@@ -504,16 +580,22 @@ def _scan_exact(name, fn, ref, args, kw, what):
     if not torch.equal(got, want):
         fail(f"{name} {what}: kernel differs from the plain version "
              f"(max abs err {err})")
+    if timed:
+        return got, err, start.elapsed_time(end)
     return got, err
 
 
 def _scan_edges(dev, seed, modes):
-    """Every mode on the edge cases of tests/torch_gapscan_cases.py;
-    returns how many."""
-    from kcftools_tpu_torch.ops import gapscan
+    """Every mode on the edge cases of tests/torch_gapscan_cases.py (the
+    ROWS and RUNS modes also on its long cases: groups of 1, 8 and 9
+    rows over slabs of LONG_N and ODD_N positions); returns how many."""
     from tests.torch_gapscan_cases import (
+        LONG_N,
+        ODD_N,
         bits,
         join_case,
+        long_rows_case,
+        long_runs_case,
         rows_case,
         runs_case,
         slabs_case,
@@ -524,10 +606,9 @@ def _scan_edges(dev, seed, modes):
         for case in (seed, seed + 1):
             routed, slot_map, valid, ws, wh = join_case(case, mc,
                                                         inverted=True)
-            args = _on(dev, routed.view(np.int32), slot_map, bits(valid),
-                       ws, wh)
-            _scan_exact("gapscan_join", gapscan.slab_scan_join,
-                        gapscan.slab_scan_join_ref, args,
+            args = _on(dev, routed.view(np.int32), slot_map[None],
+                       bits(valid)[None], ws[None], wh[None])
+            _scan_exact("gapscan_join", *modes["gapscan_join"], args,
                         {"k": K, "min_count": mc}, f"edge case {case}")
             routed, slot_maps, valid, ws, wh = slabs_case(case, mc,
                                                           inverted=True)
@@ -546,25 +627,54 @@ def _scan_edges(dev, seed, modes):
                     _on(dev, dl, bits(valid), ws, wh), {"k": k},
                     f"edge case k={k}")
         n_edge += 2
+    for rows, n, pad in ((1, LONG_N, 16), (8, LONG_N, 16), (9, ODD_N, 9)):
+        pr, valid, ws, wh = long_rows_case(seed + rows, K, rows, n,
+                                           inverted=True)
+        _scan_exact("gapscan_rows", *modes["gapscan_rows"],
+                    _on(dev, bits(pr), bits(valid), ws, wh), {"k": K},
+                    f"long case, {rows} rows of {n}")
+        dl, valid, ws, wh = long_runs_case(seed + rows, K, rows, n, pad)
+        _scan_exact("gapscan_runs", *modes["gapscan_runs"],
+                    _on(dev, dl, bits(valid), ws, wh), {"k": K},
+                    f"long case, {rows} rows of {n}")
+        n_edge += 2
     return n_edge
 
 
 def _time_scan(name, fn, ref, args, kw, nbytes, floor_bytes=None,
                floor="sector"):
-    """Bit-exact check, then the wrapper call's, device and plain ms
-    beside the bound (and the sector or design floor)."""
+    """Bit-exact check (its plain call timed), then the wrapper call's
+    and the device ms beside the bound (and the sector or design
+    floor)."""
     shape = ("x".join(map(str, args[1].shape)) if name == "gapscan_join"
              else f"{args[0].shape[0]} rows x {8 * args[1].shape[-1]}")
     what = f"{shape} positions, {args[-1].shape[-1]} windows"
-    _, err = _scan_exact(name, fn, ref, args, kw, what)
+    _, err, plain_ms = _scan_exact(name, fn, ref, args, kw, what,
+                                   timed=True)
     row = {"max_abs_err": err, "what": what, "library_ms": None,
-           **_times(lambda: fn(*args, **kw), lambda: ref(*args, **kw),
-                    nbytes)}
+           **_kernel_times(lambda: fn(*args, **kw), nbytes),
+           "plain_ms": plain_ms}
     if floor_bytes is not None:
         row[f"{floor}_floor_ms"] = floor_bytes / HBM_BYTES_PER_S * 1e3
         row[f"{floor}_floor_share"] = (row[f"{floor}_floor_ms"]
                                        / row["device_ms"])
     return row
+
+
+def _log_scan(name, row, n_edge):
+    extra = ""
+    if "sector_floor_ms" in row:
+        extra = (f"; sector floor {row['sector_floor_ms']} ms (share "
+                 f"{row['sector_floor_share']}); main path's slabs "
+                 f"{json.dumps(row['main_slabs'])}")
+    if "design_floor_ms" in row:
+        extra = (f"; design floor (decoded bitmaps written and read back) "
+                 f"{row['design_floor_ms']} ms (share "
+                 f"{row['design_floor_share']})")
+    log(f"{name}: exact on {n_edge} edge cases and at {row['what']} "
+        f"(max_abs_err {row['max_abs_err']}); call {row['ms']} ms, "
+        f"device {row['device_ms']} ms, plain {row['plain_ms']} ms; "
+        f"bound {row['bound_ms']} ms, share {row['bound_share']}{extra}")
 
 
 def check_scan(dev, seed):
@@ -574,8 +684,10 @@ def check_scan(dev, seed):
     output written once, at HBM_BYTES_PER_S); the JOIN mode also beside
     its sector floor and at the main path's own slabs (MAIN_SLABS x
     MAIN_SLAB_POS positions, one launch), the RUNS mode beside its design
-    floor. No single PyTorch call computes the scan, so library_ms is
-    null."""
+    floor. The ROWS and RUNS modes also at a full dprefix group
+    (GROUP_ROWS x GROUP_N) in each of GROUP_LAYOUTS (the record's
+    ``group``). No single PyTorch call computes the scan, so library_ms
+    is null."""
     from kcftools_tpu_torch.ops import gapscan
 
     modes = {
@@ -600,28 +712,37 @@ def check_scan(dev, seed):
     rows["gapscan_join"] = row
     del args
     torch.cuda.empty_cache()
-    for name, make in (("gapscan_rows", scan_rows_operands),
-                       ("gapscan_runs", scan_runs_operands)):
-        args, nbytes, *design = make(dev, seed, 3)
-        rows[name] = _time_scan(name, *modes[name], args, {"k": K}, nbytes,
-                                *design, floor="design")
-        del args
-        torch.cuda.empty_cache()
+    rows_args = scan_rows_operands(dev, seed, 3)
+    runs_args = scan_runs_operands(rows_args)
+    rows["gapscan_rows"] = _time_scan("gapscan_rows", *modes["gapscan_rows"],
+                                      rows_args, {"k": K},
+                                      rows_bytes(rows_args))
+    rows["gapscan_runs"] = _time_scan("gapscan_runs", *modes["gapscan_runs"],
+                                      runs_args, {"k": K},
+                                      *runs_bytes(runs_args), floor="design")
+    del rows_args, runs_args
+    torch.cuda.empty_cache()
     for name, row in rows.items():
-        extra = ""
-        if "sector_floor_ms" in row:
-            extra = (f"; sector floor {row['sector_floor_ms']} ms (share "
-                     f"{row['sector_floor_share']}); main path's slabs "
-                     f"{json.dumps(row['main_slabs'])}")
-        if "design_floor_ms" in row:
-            extra = (f"; design floor (decoded bitmaps written and read "
-                     f"back) {row['design_floor_ms']} ms (share "
-                     f"{row['design_floor_share']})")
-        log(f"{name}: exact on {n_edge} edge cases and at {row['what']} "
-            f"(max_abs_err {row['max_abs_err']}); call {row['ms']} ms, "
-            f"device {row['device_ms']} ms, plain {row['plain_ms']} ms; "
-            f"bound {row['bound_ms']} ms, share {row['bound_share']}{extra}")
+        _log_scan(name, row, n_edge)
         del row["what"]
+    # a full group, in each window layout
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    rows_args = scan_rows_operands(dev, seed + 2, GROUP_ROWS, GROUP_N)
+    runs_args = scan_runs_operands(rows_args)
+    for layout in GROUP_LAYOUTS:
+        ws, wh = _windows(layout, GROUP_N, g, dev)
+        for name, base in (("gapscan_rows", rows_args),
+                           ("gapscan_runs", runs_args)):
+            args = [*base[:2], ws, wh]
+            if name == "gapscan_rows":
+                row = _time_scan(name, *modes[name], args, {"k": K},
+                                 rows_bytes(args))
+            else:
+                row = _time_scan(name, *modes[name], args, {"k": K},
+                                 *runs_bytes(args), floor="design")
+            _log_scan(f"{name} [{layout}]", row, n_edge)
+            rows[name].setdefault("group", {})[layout] = row
+            torch.cuda.empty_cache()
     return rows
 
 

@@ -1,5 +1,5 @@
-// Window gap-run scan for Hopper (sm_90a): chunk summaries, then one warp
-// per window; three front ends.
+// Window gap-run scan for Hopper (sm_90a): three front ends over one
+// summary (gapsum.cuh's Sum).
 //
 // Replaces the XLA program kcftools_tpu/engine/device_prefix.py::_scan_core
 // as kcftools_tpu/engine/device_join.py::_slab_scan runs it on the routed
@@ -13,19 +13,24 @@
 // variations, inner, left, right and, in the JOIN mode, the count sum. A
 // window with w_hi < w_start - 1 gets what the prefix differences of the
 // plain version give (negated sums over [w_hi + 1, w_start - 1], the rest
-// 0).
+// 0). Bounds outside the slab are clamped.
 //
 // The statistics of any range of positions follow from one summary that
-// combines associatively (not invertibly), gapsum.cuh's Sum. Presence is
+// combines associatively (not commutatively, not invertibly). Presence is
 // taken inside the valid bitmap.
 //
 // What bounds it: device memory. Each input byte read once and each output
 // written once: in the JOIN mode the slot maps (4 B a position) and one
 // 4-byte count per valid position, gathered at random from the routed
 // counts (268 MB at the main path's 2^26 slots, over the 50 MB L2), so each
-// gather really costs a 32-byte sector (the "sector floor"); the valid
-// bitmaps, the presence rows (n/8 B a row), the run streams (2 B an
-// entry), 16 B of bounds and 40-48 B of output a window per row.
+// gather really costs a 32-byte sector (the "sector floor"); in the ROWS
+// mode the valid bitmap and the presence rows (n/8 B each); in the RUNS
+// mode the run streams (2 B an entry) and the valid bitmap, plus the
+// decoded absent bitmaps that this design writes and reads back (the
+// "design floor"); 16 B of bounds and 40-48 B of output a window and row.
+// Short of those bytes, the ROWS and RUNS modes are bound by instructions
+// and their latency: folding one 4-byte word into a summary takes some 25,
+// and each window and row ends in a chain of shuffles and combines.
 //
 // What the design does about it:
 // - JOIN pass 1 (join_chunks): a warp per chunk of 1,024 positions and slab.
@@ -36,23 +41,43 @@
 //   not latency, bound the pass. Each count is gathered exactly once. The
 //   pass writes the slab's presence bitmap (n/8 B), one int64 count sum a
 //   word (n/4 B) and the chunk summaries (40 B per 1,024 positions).
-// - Pass 2 (windows): one warp per window and row combines the partial head
-//   chunk, the whole chunks' summaries (32 a step, combined by an ordered
-//   shuffle tree) and the partial tail chunk. The partial chunks come from
-//   the presence and valid words (popc / ffs / clz, a loop only over a
-//   word's closed gaps) and, in the JOIN mode, the word count sums; only a
-//   window's partial edge words (at most 2 x 31 positions, one position a
-//   lane) go back to the slot map and the routed counts.
-// - All slabs of a sample, or all rows of a dprefix group, go through one
-//   call: the row is the slab (JOIN: its own slot map, valid bitmap and
-//   windows) or the sample (ROWS / RUNS: one valid bitmap and windows).
-// - The RUNS front end decodes the (S, 2, R) uint8 absent-run streams
-//   (delta from the previous run's end with (255, 0) fillers, length with
-//   (0, 255) continuations, zero padding) on the card: per row, segment
-//   totals of delta + length, an exclusive scan of the totals, then each
-//   block rescans its segment and clears every run [start, end) from a copy
-//   of the valid words by atomicAnd (starts at or past n dropped, ends
-//   clamped to n). The ROWS passes then read that (S, n/8) bitmap.
+//   JOIN pass 2 (join_windows): one warp per window and slab combines the
+//   partial head chunk, the whole chunks' summaries (32 a step, combined by
+//   an ordered shuffle tree) and the partial tail chunk; only a window's
+//   partial edge words (at most 2 x 31 positions, one position a lane) go
+//   back to the slot map and the routed counts.
+// - ROWS and RUNS: the work owned by windows, not by chunks; no chunk
+//   summary is stored or read. Pass 1 (rows_short): a group of L lanes a
+//   window and row, the rows of a window in adjacent groups (so their valid
+//   loads coincide), L the least power of two up to 32 with which W x S x L
+//   lanes fill every SM's threads, as the device reports them (one lane a
+//   window and row when there are that many). The lanes of a group fold
+//   contiguous stretches of the window's 16-byte quads (128 positions)
+//   serially in registers, kBatchQuads quads of valid and presence words in
+//   flight at once (fold_word: word_sum and combine in one, no shuffle a
+//   word), then combine in log2 L ordered shuffle steps. A window of more
+//   than kShortQuads quads (8,192 positions: the feature windows of -f
+//   gene|transcript, up to a whole slab) goes to a list instead. Pass 2
+//   (rows_long): persistent blocks (kLongBlocksPerSm an SM) take the listed
+//   windows one at a time, a warp a row (or, for fewer than 8 rows, a row's
+//   piece), its lanes' stretches combined by an ordered shuffle tree, so
+//   windows of any length spread over the card. The repeats of a word (the
+//   valid bitmap across rows, sliding windows) come from L1 and L2.
+// - The RUNS decode turns the (S, 2, R) uint8 absent-run streams (delta
+//   from the previous run's end with (255, 0) fillers, length with (0, 255)
+//   continuations, zero padding) into an absent bitmap a row in three
+//   launches that never wait on one another inside: runs_totals (a block
+//   the total of a segment of kDecSeg entries),
+//   runs_offsets (a block a row: the exclusive scan of its totals, and
+//   the words where a span starts, or the stream ends, inside a word
+//   zeroed) and runs_paint (a block a segment: its span of positions
+//   painted into a window of words in shared memory, kDecWin a pass,
+//   starts at or past n dropped and ends clamped to n; every word of the
+//   span then written once, coalesced: the two words it may share with
+//   another span or-ed, the rest stored; the words past the stream zeroed
+//   in shares). So the bitmap needs no memset and no scattered store
+//   reaches device memory. The window passes then read valid & ~absent:
+//   no copy of the valid words is made.
 //
 // C entry points for ctypes (kcf_gapscan_join, kcf_gapscan_rows,
 // kcf_gapscan_runs) return a cudaError_t.
@@ -68,10 +93,11 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 1024;  // positions of a chunk: one 32-bit word a lane
 constexpr int kStage = 33;    // staged slot-map words a lane (one of padding)
-constexpr int kRunSeg = 4 * kThreads;  // run entries per front-end block
 // count gathers a lane of JOIN pass 1 keeps in flight: its whole word (16
 // ties with 32 on the card, 8 is slower)
 constexpr int kBatch = 32;
+
+// -- the JOIN mode ------------------------------------------------------
 
 // the chunk summary as stored by pass 1 (40 bytes)
 struct StoredSum {
@@ -80,19 +106,16 @@ struct StoredSum {
 };
 
 struct Params {
-  uint32_t* presence;        // (S, nw) words: ROWS input; JOIN / RUNS output
-  long long* wsum;           // JOIN: (S, nw) count sum of each word
-  const uint32_t* routed;    // JOIN: routed counts (uint32)
+  uint32_t* presence;        // (S, nw) words, written by pass 1
+  long long* wsum;           // (S, nw) count sum of each word
+  const uint32_t* routed;    // routed counts (uint32)
   long long n_routed;
-  const int32_t* slot_map;   // JOIN: (S, n) routed slot of each position
-  const uint32_t* valid;     // LSB-first words, valid_stride apart a row
-  long long valid_stride;    // 0: one bitmap for every row
-  const long long* w_start;  // W bounds, win_stride apart a row
+  const int32_t* slot_map;   // (S, n) routed slot of each position
+  const uint32_t* valid;     // (S, nw) LSB-first words
+  const long long* w_start;  // (S, W) bounds
   const long long* w_hi;
-  long long win_stride;      // 0: one window list for every row
   StoredSum* chunks;         // (S, n_chunks)
-  long long* out;            // field f, row r, window w: f*out_field + r*out_row + w
-  long long out_field, out_row;
+  long long* out;            // (S, 6, W)
   long long n, nw, n_chunks;
   int S, W, k;
   long long min_count;
@@ -108,11 +131,9 @@ __device__ __forceinline__ long long routed_count(const Params& p, int row,
              : 0ll;
 }
 
-// The summary of positions [lo, hi] (lo <= hi) of one chunk and row, from
-// the presence words (and, in the JOIN mode, the word count sums and the
-// counts of the partial edge words); the result is lane 0's. Lane j takes
-// word j of the chunk.
-template <bool JOIN>
+// The summary of positions [lo, hi] (lo <= hi) of one chunk and slab, from
+// the presence words, the word count sums and the counts of the partial
+// edge words; the result is lane 0's. Lane j takes word j of the chunk.
 __device__ Sum chunk_range(const Params& p, int row, long long lo,
                            long long hi) {
   const int lane = threadIdx.x & 31;
@@ -127,27 +148,19 @@ __device__ Sum chunk_range(const Params& p, int row, long long lo,
     mask = kFull;
     if (lane == j0) mask &= kFull << (lo & 31);
     if (lane == j1) mask &= kFull >> (31 - (hi & 31));
-    vw = p.valid[row * p.valid_stride + word] & mask;
+    vw = p.valid[at] & mask;
     pw = p.presence[at] & vw;
-    if (JOIN && mask == kFull) csum = p.wsum[at];
+    if (mask == kFull) csum = p.wsum[at];
   }
-  if (JOIN) {
-    // the partial edge words' present positions, one position a lane
-    const unsigned edge = mask != kFull ? pw : 0u;
-    const unsigned e0 = __shfl_sync(kFull, edge, j0);
-    const unsigned e1 = j1 != j0 ? __shfl_sync(kFull, edge, j1) : 0u;
-    if ((e0 >> lane) & 1u) csum += routed_count(p, row, base + 32ll * j0 + lane);
-    if ((e1 >> lane) & 1u) csum += routed_count(p, row, base + 32ll * j1 + lane);
-  }
+  // the partial edge words' present positions, one position a lane
+  const unsigned edge = mask != kFull ? pw : 0u;
+  const unsigned e0 = __shfl_sync(kFull, edge, j0);
+  const unsigned e1 = j1 != j0 ? __shfl_sync(kFull, edge, j1) : 0u;
+  if ((e0 >> lane) & 1u) csum += routed_count(p, row, base + 32ll * j0 + lane);
+  if ((e1 >> lane) & 1u) csum += routed_count(p, row, base + 32ll * j1 + lane);
   Sum s = word_sum(pw, vw, p.k);
   s.csum = csum;
   return warp_combine(s, p.k);
-}
-
-__device__ __forceinline__ void store_chunk(const Params& p, long long item,
-                                            const Sum& s) {
-  p.chunks[item] = {s.nval, s.obs, s.lead, s.trail, s.var, 0, s.dist,
-                    s.csum};
 }
 
 // JOIN pass 1: a warp per chunk and slab gathers each count once.
@@ -177,7 +190,7 @@ __global__ void __launch_bounds__(kThreads) join_chunks(Params p) {
   }
   __syncwarp();
   const long long word = (lo >> 5) + lane;
-  const unsigned vw = lane < nwc ? p.valid[row * p.valid_stride + word] : 0u;
+  const unsigned vw = lane < nwc ? p.valid[row * p.nw + word] : 0u;
   const int32_t* mine = st + lane * kStage;
   unsigned pw = 0u;
   long long csum = 0;
@@ -207,23 +220,14 @@ __global__ void __launch_bounds__(kThreads) join_chunks(Params p) {
   Sum s = word_sum(pw, vw, p.k);
   s.csum = csum;
   s = warp_combine(s, p.k);
-  if (lane == 0) store_chunk(p, item, s);
+  if (lane == 0) {
+    p.chunks[item] = {s.nval, s.obs, s.lead, s.trail, s.var, 0, s.dist,
+                      s.csum};
+  }
 }
 
-// ROWS pass 1: a warp per chunk and row reads the presence words.
-__global__ void __launch_bounds__(kThreads) rows_chunks(Params p) {
-  const long long item =
-      (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (item >= (long long)p.S * p.n_chunks) return;  // whole warps
-  const int row = (int)(item / p.n_chunks);
-  const long long lo = (item % p.n_chunks) * kChunk;
-  const long long hi = (lo + kChunk < p.n ? lo + kChunk : p.n) - 1;
-  const Sum s = chunk_range<false>(p, row, lo, hi);
-  if ((threadIdx.x & 31) == 0) store_chunk(p, item, s);
-}
-
-template <bool JOIN>
-__global__ void __launch_bounds__(kThreads) windows(Params p) {
+// JOIN pass 2: a warp per window and slab.
+__global__ void __launch_bounds__(kThreads) join_windows(Params p) {
   const long long item =
       (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (item >= (long long)p.S * p.W) return;  // whole warps
@@ -231,8 +235,8 @@ __global__ void __launch_bounds__(kThreads) windows(Params p) {
   const int row = (int)(item / p.W);
   const int w = (int)(item % p.W);
   // bounds outside the slab are outside the contract: clamp, to stay in it
-  long long s = p.w_start[row * p.win_stride + w];
-  long long h = p.w_hi[row * p.win_stride + w];
+  long long s = p.w_start[(long long)row * p.W + w];
+  long long h = p.w_hi[(long long)row * p.W + w];
   s = s < 0 ? 0 : (s > p.n ? p.n : s);
   h = h < -1 ? -1 : (h > p.n - 1 ? p.n - 1 : h);
   const bool neg = h < s - 1;
@@ -242,9 +246,9 @@ __global__ void __launch_bounds__(kThreads) windows(Params p) {
   if (lo <= hi) {
     const long long c0 = lo / kChunk, c1 = hi / kChunk;
     if (c0 == c1) {
-      t = chunk_range<JOIN>(p, row, lo, hi);
+      t = chunk_range(p, row, lo, hi);
     } else {
-      t = chunk_range<JOIN>(p, row, lo, c0 * kChunk + kChunk - 1);
+      t = chunk_range(p, row, lo, c0 * kChunk + kChunk - 1);
       const StoredSum* cs = p.chunks + (long long)row * p.n_chunks;
       for (long long c = c0 + 1; c < c1; c += 32) {
         Sum x = empty_sum();
@@ -255,7 +259,7 @@ __global__ void __launch_bounds__(kThreads) windows(Params p) {
         x = warp_combine(x, p.k);
         t = combine(t, x, p.k);  // lane 0's is the one kept
       }
-      t = combine(t, chunk_range<JOIN>(p, row, c1 * kChunk, hi), p.k);
+      t = combine(t, chunk_range(p, row, c1 * kChunk, hi), p.k);
     }
   }
   if (lane != 0) return;
@@ -277,24 +281,318 @@ __global__ void __launch_bounds__(kThreads) windows(Params p) {
     f[4] = has ? t.trail : t.nval;
     f[5] = t.csum;
   }
-  long long* o = p.out + (long long)row * p.out_row + w;
+  long long* o = p.out + (long long)row * 6 * p.W + w;
 #pragma unroll
-  for (int i = 0; i < (JOIN ? 6 : 5); ++i) o[i * p.out_field] = f[i];
+  for (int i = 0; i < 6; ++i) o[i * p.W] = f[i];
 }
 
-// -- the RUNS front end -------------------------------------------------
+// -- the ROWS and RUNS modes: windows -----------------------------------
 
-struct Runs {
-  const uint8_t* dl;  // (S, 2, R): deltas, then lengths
-  long long R;
-  long long n_seg;    // ceil(R / kRunSeg)
-  long long* seg;     // (S, n_seg): segment totals, then their offsets
+constexpr int kRowWarps = 8;  // warps of a block of either pass
+constexpr int kRowThreads = 32 * kRowWarps;
+constexpr long long kShortQuads = 64;  // quads of a short window, at most
+constexpr int kBatchQuads = 4;  // quads a lane loads at once
+constexpr int kLongBlocksPerSm = 4;  // persistent blocks of the long pass
+
+struct Rows {
+  const uint32_t* bits;      // (S, stride) words: presence, or (RUNS) absent
+  long long stride;          // words a row of bits
+  const uint32_t* valid;     // nw words, one bitmap for every row
+  const long long* w_start;  // W bounds, one list for every row
+  const long long* w_hi;
+  long long* out;            // (5, S, W)
+  long long n, nw;
+  int S, W, k;
+  int vec;                   // 16-byte loads of both bitmaps
+  int group;                 // pass 1: lanes a window and row
+  int long_blocks;           // pass 2: persistent blocks
+  int* long_count;           // [0] long windows, [1] the next to take
+  int* long_list;            // (W,) the long windows, in any order
 };
 
-// Inclusive block-wide prefix sum of v (every thread calls it); *all gets
-// the block's total.
-__device__ long long block_scan(long long v, long long* all) {
-  __shared__ long long warp_tot[kWarps];
+// Words 4q .. 4q + 3 of a bitmap; words at or past nw read 0.
+__device__ __forceinline__ uint4 load_quad(const uint32_t* base, long long q,
+                                           long long nw, int vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(base) + q);
+  const long long w = 4 * q;
+  return make_uint4(w < nw ? __ldg(base + w) : 0u,
+                    w + 1 < nw ? __ldg(base + w + 1) : 0u,
+                    w + 2 < nw ? __ldg(base + w + 2) : 0u,
+                    w + 3 < nw ? __ldg(base + w + 3) : 0u);
+}
+
+// The bits of word wi inside positions [lo, hi].
+__device__ __forceinline__ unsigned range_mask(long long wi, long long lo,
+                                               long long hi) {
+  const long long a = wi << 5;
+  if (a > hi || a + 31 < lo) return 0u;
+  unsigned m = kFull;
+  if (a < lo) m &= kFull << (int)(lo - a);
+  if (a + 31 > hi) m &= kFull >> (int)(a + 31 - hi);
+  return m;
+}
+
+// Quad q of the valid bitmap, masked to positions [lo, hi].
+__device__ __forceinline__ uint4 valid_quad(const Rows& p, long long q,
+                                            long long lo, long long hi) {
+  uint4 v = load_quad(p.valid, q, p.nw, p.vec);
+  if (128 * q < lo || 128 * q + 127 > hi) {
+    v.x &= range_mask(4 * q, lo, hi);
+    v.y &= range_mask(4 * q + 1, lo, hi);
+    v.z &= range_mask(4 * q + 2, lo, hi);
+    v.w &= range_mask(4 * q + 3, lo, hi);
+  }
+  return v;
+}
+
+// a = combine(a, word_sum(pw, vw, k)) without building the word's
+// summary: pw inside vw, both masked.
+__device__ __forceinline__ void fold_word(Sum& a, unsigned pw, unsigned vw,
+                                          int k) {
+  const int nv = __popc(vw);
+  if (pw == 0u) {
+    a.nval += nv;
+    a.trail += nv;
+    if (a.obs == 0) a.lead = a.nval;
+    return;
+  }
+  const int f = __ffs(pw) - 1;
+  const int l = 31 - __clz(pw);
+  const int lead = __popc(vw & ((1u << f) - 1u));
+  if (a.obs) {
+    const int g = a.trail + lead;
+    if (g > 0) {
+      a.var += 1;
+      a.dist += gap_dist(g, k);
+    }
+  } else {
+    a.lead = a.nval + lead;
+  }
+  // the word's own closed gaps, as word_sum walks them
+  unsigned m = vw & ~pw & ((1u << l) - 1u) & ~((2u << f) - 1u);
+  while (m) {
+    const int q = __ffs(m) - 1;
+    const int x = 31 - __clz(pw & ((1u << q) - 1u));
+    const int y = __ffs(pw & ~((2u << q) - 1u)) - 1;
+    a.var += 1;
+    a.dist += gap_dist(__popc(vw & ((1u << y) - 1u) & ~((2u << x) - 1u)), k);
+    m &= ~((1u << y) - 1u);
+  }
+  a.trail = __popc(vw & ~((2u << l) - 1u));  // 2u << 31 wraps to 0: none
+  a.obs += __popc(pw);
+  a.nval += nv;
+}
+
+// a, then the four words of a quad in order: v the masked valid words, x
+// the row's presence (or, RUNS, absent) words.
+template <bool RUNS>
+__device__ __forceinline__ void fold_quad(Sum& a, uint4 v, uint4 x, int k) {
+  fold_word(a, RUNS ? v.x & ~x.x : v.x & x.x, v.x, k);
+  fold_word(a, RUNS ? v.y & ~x.y : v.y & x.y, v.y, k);
+  fold_word(a, RUNS ? v.z & ~x.z : v.z & x.z, v.z, k);
+  fold_word(a, RUNS ? v.w & ~x.w : v.w & x.w, v.w, k);
+}
+
+// The summaries of each group of L lanes (a power of two) combined in lane
+// order; the result is the group's first lane's. Count sums left out.
+__device__ __forceinline__ Sum group_fold(Sum s, int L, int k) {
+  for (int o = 1; o < L; o <<= 1) {
+    Sum y;
+    y.nval = __shfl_down_sync(kFull, s.nval, o, L);
+    y.obs = __shfl_down_sync(kFull, s.obs, o, L);
+    y.lead = __shfl_down_sync(kFull, s.lead, o, L);
+    y.trail = __shfl_down_sync(kFull, s.trail, o, L);
+    y.var = __shfl_down_sync(kFull, s.var, o, L);
+    y.dist = __shfl_down_sync(kFull, s.dist, o, L);
+    y.csum = 0;
+    s = combine(s, y, k);
+  }
+  return s;
+}
+
+__device__ __forceinline__ void store_row(const Rows& p, int row, int w,
+                                          const Sum& t, bool neg) {
+  long long f[5];
+  if (neg) {
+    f[0] = -(long long)t.obs;
+    f[1] = 0;
+    f[2] = 0;
+    f[3] = 0;
+    f[4] = -(long long)t.nval;
+  } else {
+    const bool has = t.obs > 0;
+    f[0] = t.obs;
+    f[1] = has ? (long long)t.var + (t.lead > 0) + (t.trail > 0)
+               : (long long)(t.nval > 0);
+    f[2] = t.dist;
+    f[3] = has ? t.lead : 0;
+    f[4] = has ? t.trail : t.nval;
+  }
+  long long* o = p.out + (long long)row * p.W + w;
+  const long long field = (long long)p.S * p.W;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) o[i * field] = f[i];
+}
+
+// Window w's positions [lo, hi] (lo <= hi: a window with w_hi < w_start - 1
+// covers [w_hi + 1, w_start - 1] and is negated); bounds outside the slab
+// are outside the contract: clamp, to stay in it.
+__device__ __forceinline__ bool window_range(const Rows& p, int w,
+                                             long long* lo, long long* hi) {
+  long long s = p.w_start[w], h = p.w_hi[w];
+  s = s < 0 ? 0 : (s > p.n ? p.n : s);
+  h = h < -1 ? -1 : (h > p.n - 1 ? p.n - 1 : h);
+  const bool neg = h < s - 1;
+  *lo = neg ? h + 1 : s;
+  *hi = neg ? s - 1 : h;
+  return neg;
+}
+
+// acc, then quads [qb, qe) of one row folded in order, positions [lo, hi],
+// kBatchQuads loads in flight at once.
+template <bool RUNS>
+__device__ __forceinline__ void fold_quads(const Rows& p, const uint32_t* row,
+                                           long long qb, long long qe,
+                                           long long lo, long long hi,
+                                           Sum& acc) {
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (long long q = qb; q < qe; q += kBatchQuads) {
+    uint4 v[kBatchQuads], x[kBatchQuads];
+#pragma unroll
+    for (int i = 0; i < kBatchQuads; ++i) {
+      v[i] = q + i < qe ? valid_quad(p, q + i, lo, hi) : zero;
+      x[i] = q + i < qe ? load_quad(row, q + i, p.nw, p.vec) : zero;
+    }
+#pragma unroll
+    for (int i = 0; i < kBatchQuads; ++i) fold_quad<RUNS>(acc, v[i], x[i], p.k);
+  }
+}
+
+// Pass 1: a group of p.group lanes (L, a power of two the host picks so
+// that the card fills: W x S x L lanes) a window and row, the rows of a
+// window in adjacent groups, so their valid loads coincide. The lanes of
+// a group fold contiguous stretches of the window's quads serially and
+// combine them in log2 L shuffle steps. A window of more than kShortQuads
+// quads goes to the long list instead.
+template <bool RUNS>
+__global__ void __launch_bounds__(kRowThreads, 4) rows_short(Rows p) {
+  const int lane = threadIdx.x & 31;
+  const int L = p.group;
+  const long long pair =
+      ((long long)blockIdx.x * kRowThreads + threadIdx.x) / L;
+  const long long w = pair / p.S;
+  const int r = (int)(pair - w * p.S);
+  long long lo = 0, hi = -1;
+  bool neg = false;
+  if (w < p.W) neg = window_range(p, (int)w, &lo, &hi);
+  const long long q0 = lo >> 7;
+  const long long q1 = lo <= hi ? (hi >> 7) + 1 : q0;
+  const bool live = w < p.W && q1 - q0 <= kShortQuads;
+  Sum acc = empty_sum();
+  if (live) {
+    const long long per = (q1 - q0 + L - 1) / L;
+    const long long b = q0 + (lane & (L - 1)) * per;
+    fold_quads<RUNS>(p, p.bits + (long long)r * p.stride, b,
+                     b + per < q1 ? b + per : q1, lo, hi, acc);
+  }
+  acc = group_fold(acc, L, p.k);  // every lane: the shuffles are warp-wide
+  if ((lane & (L - 1)) != 0 || w >= p.W) return;
+  if (live) {
+    store_row(p, r, (int)w, acc, neg);
+  } else if (r == 0) {
+    p.long_list[atomicAdd(p.long_count, 1)] = (int)w;
+  }
+}
+
+// Quads [qb, qe) of one row, positions [lo, hi], by one warp: a lane a
+// contiguous stretch, kBatchQuads of its loads in flight at once; the
+// result is lane 0's.
+template <bool RUNS>
+__device__ Sum warp_stretch(const Rows& p, int r, long long qb, long long qe,
+                            long long lo, long long hi) {
+  const int lane = threadIdx.x & 31;
+  const long long per = (qe - qb + 31) >> 5;
+  const long long b = qb + lane * per;
+  const long long e = b + per < qe ? b + per : qe;
+  Sum acc = empty_sum();
+  fold_quads<RUNS>(p, p.bits + (long long)r * p.stride, b, e, lo, hi, acc);
+  return group_fold(acc, 32, p.k);
+}
+
+// Pass 2: persistent blocks take the long windows one at a time, a block a
+// window: S x P tasks, a warp a task, each a row and one of P contiguous
+// pieces of the window (P = 1 for kRowWarps rows or more, else kRowWarps /
+// S), the pieces of a row then combined in order from shared memory.
+template <bool RUNS>
+__global__ void __launch_bounds__(kRowThreads, 4) rows_long(Rows p) {
+  __shared__ int s_w;
+  __shared__ Sum part[kRowWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int P = p.S >= kRowWarps ? 1 : kRowWarps / p.S;
+  for (;;) {
+    if (threadIdx.x == 0) {
+      const int i = atomicAdd(p.long_count + 1, 1);
+      s_w = i < p.long_count[0] ? p.long_list[i] : -1;
+    }
+    __syncthreads();
+    const int w = s_w;
+    if (w < 0) return;  // the whole block
+    long long lo, hi;
+    const bool neg = window_range(p, w, &lo, &hi);
+    const long long q0 = lo >> 7, nq = (hi >> 7) - q0 + 1;
+    const long long pq = (nq + P - 1) / P;
+    for (int t = warp; t < p.S * P; t += kRowWarps) {
+      const int r = t / P, j = t - r * P;
+      const long long b = q0 + j * pq;
+      const long long e = b + pq < q0 + nq ? b + pq : q0 + nq;
+      const Sum x = warp_stretch<RUNS>(p, r, b, e, lo, hi);
+      if (lane == 0) {
+        if (P == 1) {
+          store_row(p, r, w, x, neg);
+        } else {
+          part[t] = x;
+        }
+      }
+    }
+    if (P > 1) {
+      __syncthreads();
+      if (warp < p.S && lane == 0) {
+        Sum t = part[warp * P];
+        for (int j = 1; j < P; ++j) t = combine(t, part[warp * P + j], p.k);
+        store_row(p, warp, w, t, neg);
+      }
+    }
+    __syncthreads();  // s_w and part are refilled
+  }
+}
+
+// -- the RUNS mode: the decode ------------------------------------------
+
+constexpr int kDecThreads = 256;
+constexpr int kDecWarps = kDecThreads / 32;
+// run entries a thread: one 4-byte load (more a thread, with segments as
+// many times longer, ran slower on an H100)
+constexpr int kDecEntries = 4;
+constexpr int kDecSeg = kDecThreads * kDecEntries;  // entries a segment
+// the shared window of absent words: a segment's span in one pass at any
+// realistic run density (1,024 entries of ~140 positions take ~4,500
+// words), in several passes past it (fillers: up to 510 positions each)
+constexpr int kDecWin = 8192;
+
+struct Decode {
+  const uint8_t* dl;   // (S, 2, R): deltas, then lengths
+  long long R, n_seg, n, nw;
+  long long* seg;      // (S, n_seg): segment totals, then their offsets
+  long long* row_end;  // (S,): the end of each row's stream
+  uint32_t* absent;    // (S, stride) words
+  long long stride;
+  int vec;             // 4-byte loads of the streams
+};
+
+// Inclusive prefix sum of v over the block's kDecThreads threads; *all
+// gets the block's total.
+__device__ long long dec_scan(long long v, long long* all) {
+  __shared__ long long warp_tot[kDecWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -306,7 +604,7 @@ __device__ long long block_scan(long long v, long long* all) {
   __syncthreads();
   long long before = 0, total = 0;
 #pragma unroll
-  for (int i = 0; i < kWarps; ++i) {
+  for (int i = 0; i < kDecWarps; ++i) {
     if (i < warp) before += warp_tot[i];
     total += warp_tot[i];
   }
@@ -315,124 +613,189 @@ __device__ long long block_scan(long long v, long long* all) {
   return v + before;
 }
 
-// A thread's four run entries of its segment: delta + length of each.
-__device__ __forceinline__ void run_entries(const Runs& r, int row,
-                                            long long seg, int d[4],
-                                            int l[4]) {
-  const uint8_t* dp = r.dl + (long long)row * 2 * r.R;
-  const long long i0 = seg * kRunSeg + 4 * threadIdx.x;
+// The 4 bytes from i0 of a stream, byte u in bits 8u (bytes at or past R
+// read 0).
+__device__ __forceinline__ unsigned load4(const uint8_t* s, long long i0,
+                                          long long R, int vec) {
+  if (vec && i0 < R) return __ldg(reinterpret_cast<const uint32_t*>(s + i0));
+  unsigned w = 0u;
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
-    const bool in = i0 + u < r.R;
-    d[u] = in ? dp[i0 + u] : 0;
-    l[u] = in ? dp[r.R + i0 + u] : 0;
+    if (i0 + u < R) w |= (unsigned)s[i0 + u] << (8 * u);
   }
+  return w;
 }
 
-// presence = the valid words, for every row
-__global__ void __launch_bounds__(kThreads) runs_init(Params p) {
-  const long long total = (long long)p.S * p.nw;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-       i < total; i += (long long)gridDim.x * kThreads) {
-    p.presence[i] = p.valid[i % p.nw];
-  }
+__device__ __forceinline__ int byte_at(unsigned w, int u) {
+  return (w >> (8 * u)) & 0xff;
 }
 
-// grid (n_seg, S): each segment's total of delta + length
-__global__ void __launch_bounds__(kThreads) runs_totals(Runs r) {
-  int d[4], l[4];
-  run_entries(r, blockIdx.y, blockIdx.x, d, l);
+// A thread's entries of segment seg of a row (deltas, lengths: a byte
+// each), and their delta + length.
+__device__ __forceinline__ long long dec_entries(const Decode& r,
+                                                 long long row, long long seg,
+                                                 unsigned* d4, unsigned* l4) {
+  const uint8_t* dp = r.dl + row * 2 * r.R;
+  const long long i0 = seg * kDecSeg + (long long)threadIdx.x * kDecEntries;
+  *d4 = load4(dp, i0, r.R, r.vec);
+  *l4 = load4(dp + r.R, i0, r.R, r.vec);
+  long long sum = 0;
+#pragma unroll
+  for (int u = 0; u < kDecEntries; ++u) sum += byte_at(*d4, u) + byte_at(*l4, u);
+  return sum;
+}
+
+// grid S x n_seg: each segment's total of delta + length
+__global__ void __launch_bounds__(kDecThreads) runs_totals(Decode r) {
+  const long long row = blockIdx.x / r.n_seg, seg = blockIdx.x % r.n_seg;
+  unsigned d4, l4;
   long long all;
-  block_scan(d[0] + l[0] + d[1] + l[1] + d[2] + l[2] + d[3] + l[3], &all);
-  if (threadIdx.x == 0) r.seg[(long long)blockIdx.y * r.n_seg + blockIdx.x] = all;
+  dec_scan(dec_entries(r, row, seg, &d4, &l4), &all);
+  if (threadIdx.x == 0) r.seg[blockIdx.x] = all;
 }
 
-// grid S: the exclusive scan of a row's segment totals, in place
-__global__ void __launch_bounds__(kThreads) runs_offsets(Runs r) {
-  long long* s = r.seg + (long long)blockIdx.x * r.n_seg;
+// grid S: a row's segment offsets (the exclusive scan of its totals, in
+// place) and its stream's end; zeroes the words that two spans share (a
+// span's start, or the stream's end, inside a word), which runs_paint
+// or-s into.
+__global__ void __launch_bounds__(kDecThreads) runs_offsets(Decode r) {
+  long long* tot = r.seg + blockIdx.x * r.n_seg;
+  uint32_t* out = r.absent + blockIdx.x * r.stride;
   long long carry = 0;
-  for (long long b = 0; b < r.n_seg; b += kThreads) {
+  for (long long b = 0; b < r.n_seg; b += kDecThreads) {
     const long long i = b + threadIdx.x;
-    const long long v = i < r.n_seg ? s[i] : 0;
+    const long long v = i < r.n_seg ? tot[i] : 0;
     long long all;
-    const long long incl = block_scan(v, &all);
-    if (i < r.n_seg) s[i] = carry + incl - v;
+    const long long off = carry + dec_scan(v, &all) - v;
+    if (i < r.n_seg) {
+      tot[i] = off;
+      if (off < r.n && (off & 31)) out[off >> 5] = 0u;
+    }
     carry += all;
   }
-}
-
-// Clear [s, e) (clamped to n) from a row's presence words. Atomic on every
-// word, so runs that share a word (and any overlap) clear exactly.
-__device__ __forceinline__ void clear_run(uint32_t* pres, long long s,
-                                          long long e, long long n) {
-  if (s >= n) return;
-  if (e > n) e = n;
-  const long long w0 = s >> 5, w1 = (e - 1) >> 5;
-  const unsigned m0 = kFull << (s & 31);
-  const unsigned m1 = kFull >> (31 - ((e - 1) & 31));
-  if (w0 == w1) {
-    atomicAnd(pres + w0, ~(m0 & m1));
-    return;
+  if (threadIdx.x == 0) {
+    r.row_end[blockIdx.x] = carry;
+    if (carry < r.n && (carry & 31)) out[carry >> 5] = 0u;
   }
-  atomicAnd(pres + w0, ~m0);
-  for (long long w = w0 + 1; w < w1; ++w) atomicAnd(pres + w, 0u);
-  atomicAnd(pres + w1, ~m1);
 }
 
-// grid (n_seg, S): rescan the segment from its offset and clear its runs
-__global__ void __launch_bounds__(kThreads) runs_paint(Params p, Runs r) {
-  int d[4], l[4];
-  run_entries(r, blockIdx.y, blockIdx.x, d, l);
-  const long long mine = d[0] + l[0] + d[1] + l[1] + d[2] + l[2] + d[3] + l[3];
-  long long all;
-  const long long incl = block_scan(mine, &all);
-  long long end =
-      r.seg[(long long)blockIdx.y * r.n_seg + blockIdx.x] + incl - mine;
-  uint32_t* pres = p.presence + (long long)blockIdx.y * p.nw;
+// Or the absent bits of a thread's runs (from pos, the end of the run
+// before them) that fall in words [w0, w0 + kDecWin) into the window.
+__device__ __forceinline__ void paint(uint32_t* win, long long w0,
+                                      long long pos, unsigned d4,
+                                      unsigned l4, long long n) {
+  const long long w1 = w0 + kDecWin;
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    end += d[u] + l[u];
-    if (l[u] > 0) clear_run(pres, end - l[u], end, p.n);
+  for (int u = 0; u < kDecEntries; ++u) {
+    const int len = byte_at(l4, u);
+    pos += byte_at(d4, u) + len;
+    const long long s = pos - len;
+    if (len == 0 || s >= n) continue;
+    const long long e = (pos < n ? pos : n) - 1;  // last absent position
+    const long long a = (s >> 5) > w0 ? (s >> 5) : w0;
+    const long long b = (e >> 5) < w1 - 1 ? (e >> 5) : w1 - 1;
+    for (long long wi = a; wi <= b; ++wi) {
+      atomicOr(win + (wi - w0), range_mask(wi, s, e));
+    }
   }
+}
+
+// grid S x n_seg: a segment's span [P, E) of positions (clamped to n)
+// painted into a shared window (kDecWin words a pass) and every word of
+// it written once, coalesced: the words it shares with another span (P or
+// E inside a word) or-ed, the rest stored. The segments also share out the
+// zeroing of the words past the row's stream.
+__global__ void __launch_bounds__(kDecThreads) runs_paint(Decode r) {
+  __shared__ uint32_t win[kDecWin];
+  const long long row = blockIdx.x / r.n_seg, seg = blockIdx.x % r.n_seg;
+  unsigned d4, l4;
+  const long long mine = dec_entries(r, row, seg, &d4, &l4);
+  long long all;
+  const long long incl = dec_scan(mine, &all);
+  const long long off = r.seg[blockIdx.x];
+  const long long P = off < r.n ? off : r.n;
+  const long long E = off + all < r.n ? off + all : r.n;
+  const long long wbase = P >> 5;
+  const long long nwords = E > P ? ((E - 1) >> 5) - wbase + 1 : 0;
+  uint32_t* out = r.absent + row * r.stride;
+  for (long long c0 = 0; c0 < nwords; c0 += kDecWin) {
+    const int cn = (int)(nwords - c0 < kDecWin ? nwords - c0 : kDecWin);
+    for (int i = threadIdx.x; i < cn; i += kDecThreads) win[i] = 0u;
+    __syncthreads();
+    paint(win, wbase + c0, off + incl - mine, d4, l4, r.n);
+    __syncthreads();
+    for (int i = threadIdx.x; i < cn; i += kDecThreads) {
+      const long long at = c0 + i;  // the word's index in the span
+      if ((at == 0 && (P & 31)) || (at == nwords - 1 && (E & 31))) {
+        atomicOr(out + wbase + at, win[i]);
+      } else {
+        out[wbase + at] = win[i];
+      }
+    }
+    __syncthreads();  // the window is refilled
+  }
+  // this segment's share of the words past the stream
+  const long long end = r.row_end[row];
+  const long long z0 = ((end < r.n ? end : r.n) + 31) >> 5;
+  const long long each = (r.nw - z0 + r.n_seg - 1) / r.n_seg;
+  const long long a = z0 + seg * each;
+  const long long b = a + each < r.nw ? a + each : r.nw;
+  for (long long w = a + threadIdx.x; w < b; w += kDecThreads) out[w] = 0u;
 }
 
 // -- launches -----------------------------------------------------------
 
-unsigned warp_blocks(long long items) {
-  return (unsigned)((items + kWarps - 1) / kWarps);
+unsigned blocks_of(long long items, int per_block) {
+  return (unsigned)((items + per_block - 1) / per_block);
 }
 
-Params make_params(long long n, int S, int W, int k, const void* valid,
-                   const void* w_start, const void* w_hi, void* chunks,
-                   void* out) {
-  Params p = {};
+cudaError_t make_rows(Rows& p, const void* bits, long long stride,
+                      const void* valid, const void* w_start, const void* w_hi,
+                      void* out, long long n, int S, int W, int k) {
+  int dev = 0, sms = 0, sm_threads = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sm_threads,
+                               cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+  if (err != cudaSuccess) return err;
+  p.bits = static_cast<const uint32_t*>(bits);
+  p.stride = stride;
   p.valid = static_cast<const uint32_t*>(valid);
   p.w_start = static_cast<const long long*>(w_start);
   p.w_hi = static_cast<const long long*>(w_hi);
-  p.chunks = static_cast<StoredSum*>(chunks);
   p.out = static_cast<long long*>(out);
   p.n = n;
   p.nw = n >> 5;
-  p.n_chunks = (n + kChunk - 1) / kChunk;
   p.S = S;
   p.W = W;
   p.k = k;
-  // ROWS / RUNS: (5, S, W)
-  p.out_field = (long long)S * W;
-  p.out_row = W;
-  return p;
+  p.vec = p.nw % 4 == 0 && stride % 4 == 0 && (uintptr_t)bits % 16 == 0 &&
+          (uintptr_t)valid % 16 == 0;
+  // lanes a window and row in pass 1: enough (window, row, lane) items to
+  // fill every SM's threads (on the H100, 132 x 2,048), one lane a window
+  // and row when there are that many
+  const long long fill = (long long)sms * sm_threads;
+  p.group = 1;
+  while (p.group < 32 && (long long)W * S * p.group < fill) p.group <<= 1;
+  p.long_blocks = kLongBlocksPerSm * sms;
+  p.long_count = nullptr;
+  p.long_list = nullptr;
+  return cudaSuccess;
 }
 
-cudaError_t launch_rows(const Params& p, cudaStream_t st) {
-  if ((long long)p.S * p.n_chunks > 0) {
-    rows_chunks<<<warp_blocks((long long)p.S * p.n_chunks), kThreads, 0,
-                  st>>>(p);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  if ((long long)p.S * p.W > 0) {
-    windows<false><<<warp_blocks((long long)p.S * p.W), kThreads, 0, st>>>(p);
-  }
+// The two window passes (the long list's counters zeroed first).
+template <bool RUNS>
+cudaError_t launch_windows(const Rows& p, cudaStream_t st) {
+  cudaError_t err = cudaMemsetAsync(p.long_count, 0, 2 * sizeof(int), st);
+  if (err != cudaSuccess) return err;
+  rows_short<RUNS><<<blocks_of((long long)p.W * p.S * p.group, kRowThreads),
+                     kRowThreads, 0, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int grid = p.W < p.long_blocks ? p.W : p.long_blocks;
+  rows_long<RUNS><<<grid, kRowThreads, 0, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -449,72 +812,93 @@ extern "C" int kcf_gapscan_join(const void* routed, long long n_routed,
                                 void* presence, void* wsum, void* chunks,
                                 void* out, long long n, int S, int W, int k,
                                 long long min_count, void* stream) {
-  Params p = make_params(n, S, W, k, valid, w_start, w_hi, chunks, out);
+  Params p = {};
   p.presence = static_cast<uint32_t*>(presence);
   p.wsum = static_cast<long long*>(wsum);
   p.routed = static_cast<const uint32_t*>(routed);
   p.n_routed = n_routed;
   p.slot_map = static_cast<const int32_t*>(slot_maps);
-  p.valid_stride = p.nw;
-  p.win_stride = W;
-  p.out_field = W;
-  p.out_row = 6ll * W;
+  p.valid = static_cast<const uint32_t*>(valid);
+  p.w_start = static_cast<const long long*>(w_start);
+  p.w_hi = static_cast<const long long*>(w_hi);
+  p.chunks = static_cast<StoredSum*>(chunks);
+  p.out = static_cast<long long*>(out);
+  p.n = n;
+  p.nw = n >> 5;
+  p.n_chunks = (n + kChunk - 1) / kChunk;
+  p.S = S;
+  p.W = W;
+  p.k = k;
   p.min_count = min_count;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long items = (long long)S * p.n_chunks;
   if (items > 0) {
-    join_chunks<<<warp_blocks(items), kThreads, 0, st>>>(p);
+    join_chunks<<<blocks_of(items, kWarps), kThreads, 0, st>>>(p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if ((long long)S * W > 0) {
-    windows<true><<<warp_blocks((long long)S * W), kThreads, 0, st>>>(p);
+    join_windows<<<blocks_of((long long)S * W, kWarps), kThreads, 0, st>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // ROWS mode: presence (S, n/8) bytes, one valid bitmap (n/8 bytes) and one
-// window list (W) for every row. chunks: S * ceil(n / 1024) * 40 bytes.
-// out: (5, S, W) int64. n a multiple of 32, the bitmaps 4-byte aligned.
+// window list (W) for every row. scratch: W + 2 int32 (the long windows'
+// list and two counters, zeroed here on the stream). out: (5, S, W) int64.
+// n a multiple of 32, the bitmaps 4-byte aligned (16-byte loads where both
+// are 16-byte aligned and n is a multiple of 128).
 extern "C" int kcf_gapscan_rows(const void* presence, const void* valid,
                                 const void* w_start, const void* w_hi,
-                                void* chunks, void* out, long long n, int S,
+                                void* scratch, void* out, long long n, int S,
                                 int W, int k, void* stream) {
-  Params p = make_params(n, S, W, k, valid, w_start, w_hi, chunks, out);
-  p.presence = static_cast<uint32_t*>(const_cast<void*>(presence));
-  return static_cast<int>(launch_rows(p, static_cast<cudaStream_t>(stream)));
+  Rows p;
+  const cudaError_t err = make_rows(p, presence, n >> 5, valid, w_start,
+                                    w_hi, out, n, S, W, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((long long)S * W == 0) return 0;
+  p.long_count = static_cast<int*>(scratch);
+  p.long_list = p.long_count + 2;
+  return static_cast<int>(
+      launch_windows<false>(p, static_cast<cudaStream_t>(stream)));
 }
 
-// RUNS mode: dl (S, 2, R) uint8 absent-run streams, decoded into the
-// presence scratch (S, n/8) bytes, then the ROWS passes. seg: S *
-// ceil(R / 1024) int64 scratch. Otherwise as kcf_gapscan_rows. S <= 65535.
+// RUNS mode: dl (S, 2, R) uint8 absent-run streams, decoded into absent
+// bitmaps, then scanned as the ROWS mode scans presence (valid & ~absent).
+// scratch: S * stride uint32 absent words (stride = n/32 rounded up to a
+// multiple of 4), S * max(1, ceil(R / 1024)) + S int64 segment offsets and
+// row ends, then the ROWS mode's W + 2 int32. Otherwise as
+// kcf_gapscan_rows.
 extern "C" int kcf_gapscan_runs(const void* dl, long long R,
                                 const void* valid, const void* w_start,
-                                const void* w_hi, void* seg, void* presence,
-                                void* chunks, void* out, long long n, int S,
-                                int W, int k, void* stream) {
-  Params p = make_params(n, S, W, k, valid, w_start, w_hi, chunks, out);
-  p.presence = static_cast<uint32_t*>(presence);
-  Runs r;
+                                const void* w_hi, void* scratch, void* out,
+                                long long n, int S, int W, int k,
+                                void* stream) {
+  const long long stride = ((n >> 5) + 3) / 4 * 4;
+  Rows p;
+  cudaError_t err = make_rows(p, scratch, stride, valid, w_start, w_hi, out,
+                              n, S, W, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((long long)S * W == 0) return 0;
+  Decode r;
   r.dl = static_cast<const uint8_t*>(dl);
   r.R = R;
-  r.n_seg = (R + kRunSeg - 1) / kRunSeg;
-  r.seg = static_cast<long long*>(seg);
+  r.n_seg = R > 0 ? (R + kDecSeg - 1) / kDecSeg : 1;
+  r.n = n;
+  r.nw = n >> 5;
+  r.absent = static_cast<uint32_t*>(scratch);
+  r.stride = stride;
+  r.seg = reinterpret_cast<long long*>(r.absent + S * stride);
+  r.row_end = r.seg + S * r.n_seg;
+  r.vec = R % 4 == 0 && (uintptr_t)dl % 4 == 0;
+  p.long_count = reinterpret_cast<int*>(r.row_end + S);
+  p.long_list = p.long_count + 2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long words = (long long)S * p.nw;
-  if (words > 0) {
-    const long long want = (words + kThreads - 1) / kThreads;
-    runs_init<<<(unsigned)(want < 8192 ? want : 8192), kThreads, 0, st>>>(p);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (r.n_seg > 0) {
-      const dim3 grid((unsigned)r.n_seg, (unsigned)S);
-      runs_totals<<<grid, kThreads, 0, st>>>(r);
-      runs_offsets<<<(unsigned)S, kThreads, 0, st>>>(r);
-      runs_paint<<<grid, kThreads, 0, st>>>(p, r);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-  }
-  return static_cast<int>(launch_rows(p, st));
+  const unsigned grid = (unsigned)(S * r.n_seg);
+  runs_totals<<<grid, kDecThreads, 0, st>>>(r);
+  runs_offsets<<<(unsigned)S, kDecThreads, 0, st>>>(r);
+  runs_paint<<<grid, kDecThreads, 0, st>>>(r);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_windows<true>(p, st));
 }

@@ -17,9 +17,8 @@ window-aligned slabs (``_Layout``), so no window straddles a slab.
 
 Every row of a group goes through one ``runs_scan`` (the run program)
 or ``rows_scan`` (the bitmap program) per slab and pool slot: on the
-card one launch of the kernel csrc/gapscan.cu, whose run front end
-decodes the group's absent runs itself, on the CPU its plain torch
-version. Its sums are int64, so the inner-distance sum is exact where
+card one call of the kernel csrc/gapscan.cu, whose run decode reads
+the group's absent runs itself, on the CPU its plain torch version. Its sums are int64, so the inner-distance sum is exact where
 the JAX version keeps a uint32 modular prefix.
 
 Over several devices (``devices=``, a list of mesh slots) the genome's

@@ -102,7 +102,7 @@ _ENTRIES = {
     "kcf_gapscan_join": ("gapscan", [_P, _LL, *[_P] * 8, _LL, _I, _I, _I,
                                      _LL, _P]),
     "kcf_gapscan_rows": ("gapscan", [*[_P] * 6, _LL, _I, _I, _I, _P]),
-    "kcf_gapscan_runs": ("gapscan", [_P, _LL, *[_P] * 7, _LL, _I, _I, _I,
+    "kcf_gapscan_runs": ("gapscan", [_P, _LL, *[_P] * 5, _LL, _I, _I, _I,
                                      _P]),
     "kcf_hash_probe": ("hashscan", [*[_P] * 4, *[_LL] * 6, _I, _I, _P]),
     "kcf_hash_scan": ("hashscan", [*[_P] * 5, _LL, _LL, _LL, _I, _LL, _P]),

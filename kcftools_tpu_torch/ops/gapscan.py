@@ -9,21 +9,21 @@ its callers take:
   routed join counts (kcftools_tpu/engine/device_join.py::_slab_scan,
   mapped over the slabs by ``_score_sample``): gather through each slab's
   slot map, unsigned presence test, the five statistics and the count
-  sums. (S_slab, 6, win_pad) int64. ``slab_scan_join`` is the same for
-  one slab, (6, win_pad).
+  sums. (S_slab, 6, win_pad) int64.
 - ``rows_scan``: the S presence bitmaps of a dprefix group over one slab
   (device_prefix.py::_score_batch). (5, S, win_pad) int64.
 - ``runs_scan``: the S absent-run streams of a dprefix group over one
   slab (device_prefix.py::_score_runs), decoded and scanned. (5, S,
   win_pad) int64.
 
-On CUDA tensors each launches the hand-written kernel ``csrc/gapscan.cu``
-(bound in ``_kernels.py``) once; on CPU tensors it takes its plain
-version, the torch-op scan (``_scan_core``: cumsum, cummax, flipped
+On CUDA tensors each calls the hand-written kernel ``csrc/gapscan.cu``
+(bound in ``_kernels.py``) once, through one C entry point whose
+launches all run on the current stream; on CPU tensors it takes its
+plain version, the torch-op scan (``_scan_core``: cumsum, cummax, flipped
 cummin and boundary gathers; all prefix sums int64) and, for the run
 streams, the torch-op decode (``_runs_presence``, ``_pack_bits``). A CUDA
 tensor never reaches a plain version. Each wrapper's ``.launches``
-counts its kernel's launches.
+counts those calls.
 
 Presence lies inside the valid bitmap on every path: the join's presence
 test includes it, the native packers (``kcf_pack_posbits``,
@@ -36,10 +36,9 @@ import torch
 
 _FIELDS_JOIN = 6
 _FIELDS_ROWS = 5
-_CHUNK = 1024  # positions per chunk summary of the kernel
+_CHUNK = 1024  # positions per chunk summary of the JOIN mode
 _SUM_WORDS = 5  # int64 words per stored chunk summary (40 bytes)
-_RUN_SEG = 1024  # run entries per block of the kernel's run front end
-_MAX_ROWS = 65535  # rows of one runs_scan launch (the grid's y extent)
+_RUN_SEG = 1024  # run entries per segment of the kernel's run decode
 
 
 def _cummin_rev(x):
@@ -156,7 +155,7 @@ def _runs_presence(dl, valid):
 
 def slab_scan_join_ref(routed_flat, slot_map, valid_bits, w_start, w_hi, *,
                        k: int, min_count: int):
-    """Plain version of ``slab_scan_join``."""
+    """One slab of ``slabs_scan_join_ref``: (6, W) int64."""
     valid = _unpack_bits(valid_bits)
     zero = torch.zeros(1, dtype=torch.int64, device=valid.device)
     cs_tot = torch.cat([zero, torch.cumsum(valid, 0, dtype=torch.int64)])
@@ -244,48 +243,20 @@ def _scratch(dev, *sizes):
             for s in sizes]
 
 
-def _n_chunks(n):
-    return -(-n // _CHUNK)
+def _rows_scratch(W):
+    """int64 words of ``kcf_gapscan_rows``' scratch: the long windows'
+    list (W int32) and its two int32 counters."""
+    return -(-(W + 2) // 2)
 
 
-def _join_kernel(wrapper, routed, slot_maps, valid_bits, w_starts, w_his, n,
-                 k, min_count):
-    """(S, 6, W) from one JOIN-mode launch; counts it on ``wrapper``."""
-    from ._kernels import launch
-
-    dev = routed.device
-    S, W = slot_maps.shape[0], w_starts.shape[1]
-    out = torch.empty((S, _FIELDS_JOIN, W), dtype=torch.int64, device=dev)
-    if out.numel() == 0:
-        return out
-    if slot_maps.data_ptr() % 16:
-        raise ValueError(f"{wrapper.__name__}: slot maps must be 16-byte "
-                         "aligned")
-    presence, wsum, chunks = _scratch(dev, S * n // 64, S * n // 32,
-                                      S * _n_chunks(n) * _SUM_WORDS)
-    launch("kcf_gapscan_join", routed, routed.numel(), slot_maps, valid_bits,
-           w_starts, w_his, presence, wsum, chunks, out, n, S, W, int(k),
-           int(min_count))
-    wrapper.launches += 1
-    return out
-
-
-def _check_join(what, routed_flat, slot_map, valid_bits, w_start, w_hi,
-                dims):
-    n = _check(what, valid_bits, w_start, w_hi, routed_flat, slot_map,
-               dims=dims)
-    if routed_flat.dtype != torch.int32 or routed_flat.dim() != 1:
-        raise TypeError(f"{what}: routed_flat must be 1-D int32")
-    if slot_map.dtype != torch.int32 or slot_map.dim() != dims:
-        raise TypeError(f"{what}: slot maps must be {dims}-D int32")
-    if slot_map.shape[-1] != n:
-        raise ValueError(f"{what}: slot maps of {slot_map.shape[-1]} "
-                         f"positions, valid bitmaps of {n}")
-    if dims == 2 and not (slot_map.shape[0] == valid_bits.shape[0]
-                          == w_start.shape[0]):
-        raise ValueError(f"{what}: slot maps, valid bitmaps and window "
-                         "bounds differ in their slab count")
-    return n
+def _runs_scratch(S, n, R, W):
+    """int64 words of ``kcf_gapscan_runs``' scratch: the absent bitmaps
+    (rows of n/32 uint32 words rounded up to a multiple of 4), an offset
+    a row and run segment, a stream end a row, then the ROWS mode's
+    scratch."""
+    stride = -(-(n // 32) // 4) * 4
+    return (S * stride // 2 + S * max(1, -(-R // _RUN_SEG)) + S
+            + _rows_scratch(W))
 
 
 def slabs_scan_join(routed_flat, slot_maps, valid_bits, w_starts, w_his, *,
@@ -298,32 +269,38 @@ def slabs_scan_join(routed_flat, slot_maps, valid_bits, w_starts, w_his, *,
     valid_bits: (S, n/8) uint8 LSB-first, n a multiple of 32; w_starts,
     w_his: (S, W) int64 inclusive window bounds. Returns (S, 6, W) int64:
     observed, variations, inner, left, right, count_sum."""
-    n = _check_join("slabs_scan_join", routed_flat, slot_maps, valid_bits,
-                    w_starts, w_his, 2)
-    if not _on_card("slabs_scan_join", valid_bits.device):
+    from ._kernels import launch
+
+    what = "slabs_scan_join"
+    n = _check(what, valid_bits, w_starts, w_his, routed_flat, slot_maps,
+               dims=2)
+    if routed_flat.dtype != torch.int32 or routed_flat.dim() != 1:
+        raise TypeError(f"{what}: routed_flat must be 1-D int32")
+    if slot_maps.dtype != torch.int32 or slot_maps.dim() != 2:
+        raise TypeError(f"{what}: slot maps must be 2-D int32")
+    if slot_maps.shape[-1] != n:
+        raise ValueError(f"{what}: slot maps of {slot_maps.shape[-1]} "
+                         f"positions, valid bitmaps of {n}")
+    if not (slot_maps.shape[0] == valid_bits.shape[0] == w_starts.shape[0]):
+        raise ValueError(f"{what}: slot maps, valid bitmaps and window "
+                         "bounds differ in their slab count")
+    dev = valid_bits.device
+    if not _on_card(what, dev):
         return slabs_scan_join_ref(routed_flat, slot_maps, valid_bits,
                                    w_starts, w_his, k=k, min_count=min_count)
-    return _join_kernel(slabs_scan_join, routed_flat, slot_maps, valid_bits,
-                        w_starts, w_his, n, k, min_count)
-
-
-def slab_scan_join(routed_flat, slot_map, valid_bits, w_start, w_hi, *,
-                   k: int, min_count: int):
-    """One slab's per-window stats from the routed join counts.
-
-    routed_flat: (R,) int32 (uint32 count bits); slot_map: (n,) int32,
-    the routed slot of each position (read where valid); valid_bits:
-    (n/8,) uint8 LSB-first, n a multiple of 32; w_start, w_hi: (W,)
-    int64 inclusive window bounds. Returns (6, W) int64: observed,
-    variations, inner, left, right, count_sum."""
-    n = _check_join("slab_scan_join", routed_flat, slot_map, valid_bits,
-                    w_start, w_hi, 1)
-    if not _on_card("slab_scan_join", valid_bits.device):
-        return slab_scan_join_ref(routed_flat, slot_map, valid_bits, w_start,
-                                  w_hi, k=k, min_count=min_count)
-    return _join_kernel(slab_scan_join, routed_flat, slot_map[None],
-                        valid_bits[None], w_start[None], w_hi[None], n, k,
-                        min_count)[0]
+    S, W = slot_maps.shape[0], w_starts.shape[1]
+    out = torch.empty((S, _FIELDS_JOIN, W), dtype=torch.int64, device=dev)
+    if out.numel() == 0:
+        return out
+    if slot_maps.data_ptr() % 16:
+        raise ValueError(f"{what}: slot maps must be 16-byte aligned")
+    presence, wsum, chunks = _scratch(dev, S * n // 64, S * n // 32,
+                                      S * -(-n // _CHUNK) * _SUM_WORDS)
+    launch("kcf_gapscan_join", routed_flat, routed_flat.numel(), slot_maps,
+           valid_bits, w_starts, w_his, presence, wsum, chunks, out, n, S, W,
+           int(k), int(min_count))
+    slabs_scan_join.launches += 1
+    return out
 
 
 def rows_scan(presence, valid_bits, w_start, w_hi, *, k: int):
@@ -350,8 +327,8 @@ def rows_scan(presence, valid_bits, w_start, w_hi, *, k: int):
     out = torch.empty((_FIELDS_ROWS, S, W), dtype=torch.int64, device=dev)
     if out.numel() == 0:
         return out
-    (chunks,) = _scratch(dev, S * _n_chunks(n) * _SUM_WORDS)
-    launch("kcf_gapscan_rows", presence, valid_bits, w_start, w_hi, chunks,
+    (scratch,) = _scratch(dev, _rows_scratch(W))
+    launch("kcf_gapscan_rows", presence, valid_bits, w_start, w_hi, scratch,
            out, n, S, W, int(k))
     rows_scan.launches += 1
     return out
@@ -365,7 +342,7 @@ def runs_scan(dl, valid_bits, w_start, w_hi, *, k: int):
     encoding (see ``_runs_presence``); valid_bits: (n/8,) uint8, n a
     multiple of 32; w_start, w_hi: (W,) int64 inclusive window bounds.
     Returns (5, S, W) int64: observed, variations, inner, left, right.
-    On the card one launch decodes the streams into presence bitmaps (no
+    On the card one call decodes the streams into absent bitmaps (no
     torch op touches the S x n rows) and scans them."""
     from ._kernels import launch
 
@@ -376,20 +353,16 @@ def runs_scan(dl, valid_bits, w_start, w_hi, *, k: int):
     if not _on_card("runs_scan", dev):
         return runs_scan_ref(dl, valid_bits, w_start, w_hi, k=k)
     S, R, W = dl.shape[0], dl.shape[2], w_start.numel()
-    if S > _MAX_ROWS:
-        raise ValueError(f"runs_scan: {S} rows, at most {_MAX_ROWS}")
     out = torch.empty((_FIELDS_ROWS, S, W), dtype=torch.int64, device=dev)
     if out.numel() == 0:
         return out
-    seg, presence, chunks = _scratch(dev, S * -(-R // _RUN_SEG), S * n // 64,
-                                     S * _n_chunks(n) * _SUM_WORDS)
-    launch("kcf_gapscan_runs", dl, R, valid_bits, w_start, w_hi, seg,
-           presence, chunks, out, n, S, W, int(k))
+    (scratch,) = _scratch(dev, _runs_scratch(S, n, R, W))
+    launch("kcf_gapscan_runs", dl, R, valid_bits, w_start, w_hi, scratch,
+           out, n, S, W, int(k))
     runs_scan.launches += 1
     return out
 
 
 slabs_scan_join.launches = 0
-slab_scan_join.launches = 0
 rows_scan.launches = 0
 runs_scan.launches = 0

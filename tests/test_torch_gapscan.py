@@ -2,20 +2,29 @@
 against the JAX package's (kcftools_tpu/engine/device_prefix.py::
 _scan_core, device_join.py::_slab_scan), on the CPU.
 
-A numpy model of the kernel (csrc/gapscan.cu) is written to its design:
-one summary per chunk of positions, then per window the partial head
-chunk, the whole chunks' summaries and the partial tail chunk; a range
-inside a chunk is summarised one 32-position word at a time by the
-kernel's bit arithmetic and the words combined in the order of its
-shuffle tree. In the JOIN mode (``JoinModel``) pass 1 gathers each valid
-position's count once into presence words and one count sum a word, and
-everything after reads those, going back to the counts only for a
-range's partial edge words. The model runs at chunk sizes 1, 7, 64 and
-4,096 (the kernel's is 1,024), so that chunk edges fall everywhere, and
-must equal the JAX package exactly. The wrappers on CPU tensors (their
-plain versions; the multi-slab one against per-slab calls too) must equal
-the JAX package, and their argument checks must raise. Every statistic
-is an integer, so every comparison is exact.
+Two numpy models of the kernel (csrc/gapscan.cu) are written to its
+design and must equal the JAX package exactly:
+- ``Model`` / ``JoinModel``, the JOIN mode: one summary per chunk of
+  positions, then per window the partial head chunk, the whole chunks'
+  summaries and the partial tail chunk; a range inside a chunk is
+  summarised one 32-position word at a time by the kernel's bit
+  arithmetic and the words combined in the order of its shuffle tree.
+  Pass 1 gathers each valid position's count once into presence words
+  and one count sum a word, and everything after reads those, going back
+  to the counts only for a range's partial edge words. It runs at chunk
+  sizes 1, 7, 64 and 4,096 (the kernel's is 1,024), so that chunk edges
+  fall everywhere.
+- ``WindowModel``, the ROWS and RUNS modes (rows_short, rows_long): a
+  window of at most 64 128-position quads folded word by word by one
+  lane; a longer one split into contiguous lane stretches of a warp (for
+  fewer than 8 rows, first into 8 // S pieces, a warp each), each
+  stretch folded word by word, the lanes combined in lane order, the
+  pieces in piece order. It runs at k 11, 16, 17, 31 and 32 on the long
+  cases, as for groups of 1, 3 and 8 rows.
+The wrappers on CPU tensors (their plain versions; the multi-slab one
+against its slabs one at a time too) must equal the JAX package, and
+their argument checks must raise. Every statistic is an integer, so every
+comparison is exact.
 """
 
 import functools
@@ -33,10 +42,15 @@ from kcftools_tpu_torch.native import build_ordmap, ordpack, pack_posbits
 from kcftools_tpu_torch.ops import gapscan as tgs
 
 from .torch_gapscan_cases import (
+    LONG_N,
+    LONG_WINDOW,
     N,
+    SHORT_QUADS,
+    ODD_N,
     PRESENCE_KINDS,
     bits,
     join_case,
+    long_rows_case,
     rows_case,
     slabs_case,
 )
@@ -229,6 +243,71 @@ class JoinModel(Model):
         return out
 
 
+class WindowModel:
+    """The ROWS / RUNS kernel (rows_short, rows_long) over one row of a
+    group of ``rows``: pr (inside valid) and valid as 32-bit words, four
+    to a 128-position quad."""
+
+    def __init__(self, pr, valid, k, rows=1):
+        self.n = valid.shape[0]
+        self.k = k
+        self.pieces = 1 if rows >= 8 else 8 // rows
+        self.pwords = bits(pr & valid).view("<u4").astype(np.int64)
+        self.vwords = bits(valid).view("<u4").astype(np.int64)
+        self.word_sum = functools.lru_cache(maxsize=None)(
+            functools.partial(word_sum, k=k))
+
+    def stretch(self, qb, qe, lo, hi):
+        """Quads [qb, qe) folded word by word in order, each word masked
+        to [lo, hi] (words outside it are empty)."""
+        acc = EMPTY
+        for w in range(4 * qb, min(4 * qe, self.vwords.shape[0])):
+            if w < lo >> 5 or w > hi >> 5:
+                continue
+            vw = int(self.vwords[w]) & word_mask(w, lo, hi)
+            acc = combine(acc, self.word_sum(int(self.pwords[w]) & vw, vw),
+                          self.k)
+        return acc
+
+    def warp(self, qb, qe, lo, hi):
+        """Quads [qb, qe) by one warp: a contiguous stretch a lane, the
+        lanes combined by the shuffle tree."""
+        per = -(-(qe - qb) // 32)
+        return tree([self.stretch(qb + j * per, min(qb + (j + 1) * per, qe),
+                                  lo, hi) for j in range(32)], self.k)
+
+    def split(self, lo, hi):
+        """A short window by one lane; a long one by the row's pieces, a
+        warp each, combined in order."""
+        q0, q1 = lo >> 7, (hi >> 7) + 1
+        if q1 - q0 <= SHORT_QUADS:
+            return self.stretch(q0, q1, lo, hi)
+        pq = -(-(q1 - q0) // self.pieces)
+        t = EMPTY
+        for j in range(self.pieces):
+            b = q0 + j * pq
+            t = combine(t, self.warp(b, min(b + pq, q1), lo, hi), self.k)
+        return t
+
+    def window(self, s, h):
+        n = self.n
+        s, h = min(max(s, 0), n), min(max(h, -1), n - 1)
+        neg = h < s - 1
+        lo, hi = (h + 1, s - 1) if neg else (s, h)
+        t = self.split(lo, hi) if lo <= hi else EMPTY
+        nval, obs, lead, trail, var, dist, _csum = t
+        if neg:
+            return [-obs, 0, 0, 0, -nval]
+        has = obs > 0
+        return [obs,
+                var + (lead > 0) + (trail > 0) if has else int(nval > 0),
+                dist, lead if has else 0, trail if has else nval]
+
+    def scan(self, ws, wh):
+        return np.array([self.window(int(s), int(h))
+                         for s, h in zip(ws, wh)], np.int64).T
+
+
 def _cs_tot(valid):
     cs = np.zeros(valid.shape[0] + 1, np.int32)
     np.cumsum(valid, out=cs[1:])
@@ -333,6 +412,30 @@ def test_model_matches_plain_on_inverted_windows(chunk):
     np.testing.assert_array_equal(got, want.numpy())
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_long_rows(seed, k, rows, n):
+    pr, valid, ws, wh = long_rows_case(seed, k, rows, n)
+    fn = jax.jit(functools.partial(jdp._score_batch, k=k))
+    want = np.asarray(fn(jnp.asarray(bits(pr)), jnp.asarray(_cs_tot(valid)),
+                         jnp.asarray(ws.astype(np.int32)),
+                         jnp.asarray(wh.astype(np.int32))))
+    return want.astype(np.int64)
+
+
+@pytest.mark.parametrize("k", [11, 16, 17, 31, 32])
+def test_window_model_matches_jax_scan_core(k):
+    """The ROWS / RUNS split over the long case's windows (longer than
+    LONG_WINDOW, the whole slab, stretch, batch and piece edges, tiling,
+    sliding, features) on its dense row, as in groups of 1, 3 and 8
+    rows."""
+    pr, valid, ws, wh = long_rows_case(100 + k, k, 1)
+    assert ((wh - ws + 1) > LONG_WINDOW).sum() > 10
+    want = _jax_long_rows(100 + k, k, 1, LONG_N)[:, 0]
+    for rows in (1, 3, 8):  # 8, 2 and 1 pieces a long window
+        got = WindowModel(pr[0], valid, k, rows).scan(ws, wh)
+        np.testing.assert_array_equal(got, want, err_msg=f"{rows} rows")
+
+
 # -- the wrappers on CPU tensors ------------------------------------------
 
 
@@ -340,13 +443,13 @@ def test_model_matches_plain_on_inverted_windows(chunk):
 def test_slab_scan_join_cpu_matches_jax(min_count):
     seed = 20 + min_count
     routed, slot_map, valid, ws, wh = join_case(seed, min_count)
-    before = tgs.slab_scan_join.launches
-    got = tgs.slab_scan_join(
-        _t(routed.view(np.int32)), _t(slot_map), _t(bits(valid)), _t(ws),
-        _t(wh), k=31, min_count=min_count)
-    assert got.shape == (6, ws.shape[0]) and got.dtype == torch.int64
-    np.testing.assert_array_equal(got.numpy(), _jax_join(seed, min_count))
-    assert tgs.slab_scan_join.launches == before  # no kernel on the CPU
+    before = tgs.slabs_scan_join.launches
+    got = tgs.slabs_scan_join(
+        _t(routed.view(np.int32)), _t(slot_map[None]), _t(bits(valid)[None]),
+        _t(ws[None]), _t(wh[None]), k=31, min_count=min_count)
+    assert got.shape == (1, 6, ws.shape[0]) and got.dtype == torch.int64
+    np.testing.assert_array_equal(got[0].numpy(), _jax_join(seed, min_count))
+    assert tgs.slabs_scan_join.launches == before  # no kernel on the CPU
 
 
 @pytest.mark.parametrize("k", [17, 31, 45])
@@ -359,6 +462,20 @@ def test_rows_scan_cpu_matches_jax(k):
     assert got.shape == (5, pr.shape[0], ws.shape[0])
     np.testing.assert_array_equal(got.numpy(), _jax_rows(seed, k))
     assert tgs.rows_scan.launches == before
+
+
+@pytest.mark.parametrize("rows,n", [(1, LONG_N), (8, LONG_N), (9, ODD_N),
+                                    (40, LONG_N)],
+                         ids=["S1", "S8", "S9-odd", "S40"])
+def test_rows_scan_cpu_matches_jax_long(rows, n):
+    """Groups of 1, 8, 9 and 40 rows over a long slab (windows longer than
+    LONG_WINDOW, the whole slab, stretch edges, tiling, sliding,
+    features)."""
+    pr, valid, ws, wh = long_rows_case(110 + rows, 31, rows, n)
+    got = tgs.rows_scan(_t(bits(pr)), _t(bits(valid)), _t(ws), _t(wh), k=31)
+    assert got.shape == (5, rows, ws.shape[0])
+    np.testing.assert_array_equal(got.numpy(),
+                                  _jax_long_rows(110 + rows, 31, rows, n))
 
 
 @functools.lru_cache(maxsize=None)
@@ -377,8 +494,8 @@ def _jax_slabs(seed, min_count):
 @pytest.mark.parametrize("min_count", [1, 3])
 def test_slabs_scan_join_cpu_matches_slabs_and_jax(min_count):
     """Three slabs of one sample (each its own slot map, valid bitmap and
-    windows, inverted ones too) in one call: equal to one
-    ``slab_scan_join`` a slab and to the JAX ``_slab_scan`` of each."""
+    windows, inverted ones too) in one call: equal to one call a slab
+    and to the JAX ``_slab_scan`` of each."""
     routed, slot_maps, valid, ws, wh = slabs_case(40 + min_count, min_count,
                                                   inverted=True)
     args = [_t(routed.view(np.int32)), _t(slot_maps), _t(bits(valid)),
@@ -388,9 +505,10 @@ def test_slabs_scan_join_cpu_matches_slabs_and_jax(min_count):
     assert got.shape == (3, 6, ws.shape[1]) and got.dtype == torch.int64
     assert tgs.slabs_scan_join.launches == before
     for si in range(3):
-        one = tgs.slab_scan_join(args[0], *(a[si] for a in args[1:]), k=31,
-                                 min_count=min_count)
-        assert torch.equal(got[si], one)
+        one = tgs.slabs_scan_join(args[0],
+                                  *(a[si : si + 1] for a in args[1:]), k=31,
+                                  min_count=min_count)
+        assert torch.equal(got[si], one[0])
     np.testing.assert_array_equal(got.numpy(), _jax_slabs(40 + min_count,
                                                           min_count))
 
@@ -449,8 +567,9 @@ def test_wrapper_checks_raise(mode, arg, bad, exc):
     args = {"join": _join_args, "rows": _rows_args,
             "slabs": _slabs_args}[mode]()
     args[arg] = bad(args[arg])
-    fn = {"join": tgs.slab_scan_join, "rows": tgs.rows_scan,
-          "slabs": tgs.slabs_scan_join}[mode]
+    if mode == "join":  # one slab, as a leading axis of 1
+        args[1:] = [a[None] for a in args[1:]]
+    fn = tgs.rows_scan if mode == "rows" else tgs.slabs_scan_join
     kw = {"k": 31} if mode == "rows" else {"k": 31, "min_count": 1}
     with pytest.raises(exc):
         fn(*args, **kw)

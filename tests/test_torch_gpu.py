@@ -27,9 +27,16 @@ from kcftools_tpu_torch.ops import lookup as tlk
 from kcftools_tpu_torch.ops import pjoin as tpj
 
 from .torch_gapscan_cases import (
+    LONG_N,
+    LONG_WINDOW,
     N,
+    ODD_N,
+    QUAD,
+    SHORT_QUADS,
     bits,
     join_case,
+    long_rows_case,
+    long_runs_case,
     rows_case,
     runs_case,
     slabs_case,
@@ -407,13 +414,13 @@ def test_gapscan_join_kernel_matches_plain(cuda_device, no_plain_scan, seed,
     and above 2^31, bit-exact against the plain version; one launch."""
     routed, slot_map, valid, ws, wh = join_case(seed, min_count,
                                                 inverted=True)
-    args = _on(cuda_device, routed.view(np.int32), slot_map, bits(valid),
-               ws, wh)
-    before = tgs.slab_scan_join.launches
-    got = tgs.slab_scan_join(*args, k=31, min_count=min_count)
+    args = _on(cuda_device, routed.view(np.int32), slot_map[None],
+               bits(valid)[None], ws[None], wh[None])
+    before = tgs.slabs_scan_join.launches
+    got = tgs.slabs_scan_join(*args, k=31, min_count=min_count)
     torch.cuda.synchronize()
-    assert tgs.slab_scan_join.launches == before + 1
-    want = no_plain_scan["join"](*args, k=31, min_count=min_count)
+    assert tgs.slabs_scan_join.launches == before + 1
+    want = no_plain_scan["slabs"](*args, k=31, min_count=min_count)
     assert torch.equal(got, want)
 
 
@@ -517,7 +524,8 @@ def test_gapscan_main_width(cuda_device):
                                     device=cuda_device)])
     wh = torch.where(ws > 0, ws + width - 1, 0)
     wh[0] = width - 1
-    got = tgs.slab_scan_join(routed, slot_map, vb, ws, wh, k=31, min_count=3)
+    got = tgs.slabs_scan_join(routed, slot_map[None], vb[None], ws[None],
+                              wh[None], k=31, min_count=3)[0]
     want = tgs.slab_scan_join_ref(routed, slot_map, vb, ws, wh, k=31,
                                   min_count=3)
     assert torch.equal(got, want)
@@ -534,6 +542,112 @@ def test_gapscan_main_width(cuda_device):
     assert torch.equal(got, tgs.slabs_scan_join_ref(
         routed, sms, vbs, torch.stack([ws, ws]), torch.stack([wh, wh]),
         k=31, min_count=3))
+
+
+LONG = [(1, LONG_N), (8, LONG_N), (9, ODD_N)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", LONG + [(40, LONG_N)],
+                         ids=["S1", "S8", "S9-odd", "S40"])
+def test_gapscan_rows_long_windows(cuda_device, no_plain_scan, rows, n):
+    """The ROWS mode on short windows (a lane a window and row) and long
+    ones (split over warps and pieces), one over the whole slab, windows
+    starting and ending on and beside quad, short/long, lane-stretch and
+    piece edges, unsorted, overlapping and inverted ones; groups of 1, 8,
+    9 and 40 rows (32, 4, 3 and 1 windows a warp; past 32 rows a lane
+    takes two); 16-byte loads (LONG_N) and word loads (ODD_N)."""
+    pr, valid, ws, wh = long_rows_case(90 + rows, 31, rows, n, inverted=True)
+    assert ((wh - ws + 1) > LONG_WINDOW).sum() > 10
+    args = _on(cuda_device, bits(pr), bits(valid), ws, wh)
+    got = tgs.rows_scan(*args, k=31)
+    assert torch.equal(got, no_plain_scan["rows"](*args, k=31))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", LONG, ids=["S1", "S8", "S9-odd"])
+def test_gapscan_runs_long_streams(cuda_device, no_plain_scan, rows, n):
+    """The RUNS mode on streams of several decode segments (one-position
+    runs that share words and cross thread stretches and segments, a run
+    over a segment's continuations, all-absent and empty rows, runs past
+    n), over the long windows; R a multiple of 16 (16-byte stream loads)
+    on LONG_N, not on ODD_N."""
+    pad = 16 if n == LONG_N else 9
+    dl, valid, ws, wh = long_runs_case(95 + rows, 31, rows, n, pad)
+    args = _on(cuda_device, dl, bits(valid), ws, wh)
+    before = tgs.runs_scan.launches
+    got = tgs.runs_scan(*args, k=31)
+    torch.cuda.synchronize()
+    assert tgs.runs_scan.launches == before + 1
+    assert torch.equal(got, no_plain_scan["runs"](*args, k=31))
+
+
+@pytest.mark.cuda
+def test_gapscan_whole_slab_windows(cuda_device, no_plain_scan):
+    """Eight rows of a 2^22-position slab: one window over the whole
+    slab, ones at and beside the short/long edge and LONG_WINDOW, ones
+    ending on lane-stretch edges, and tiling windows, in both modes."""
+    from kcftools_tpu_torch.native import bits_to_runs
+
+    rng = np.random.default_rng(5)
+    n = 1 << 22
+    valid = rng.random(n) > 0.01
+    pr = (rng.random((8, n)) > 0.02) & valid
+    pr[3] = False
+    pr[5] = valid
+    nq = n // QUAD
+    short = SHORT_QUADS * QUAD
+    pairs = [(0, n - 1), (1, n - 2), (0, short - 1), (0, short),
+             (QUAD - 1, short), (0, LONG_WINDOW - 1), (0, LONG_WINDOW),
+             (QUAD, QUAD + LONG_WINDOW), (n - LONG_WINDOW - 1, n - 1),
+             (0, (nq // 32) * 3 * QUAD - 1), (17, n // 2 + 3)]
+    pairs += [(s, s + 4969) for s in range(0, n - 4970, 4970 * 37)]
+    ws, wh = (np.asarray(p, np.int64) for p in zip(*pairs))
+    args = _on(cuda_device, bits(pr), bits(valid), ws, wh)
+    got = tgs.rows_scan(*args, k=31)
+    assert torch.equal(got, no_plain_scan["rows"](*args, k=31))
+    streams = [bits_to_runs(bits(row), bits(valid), n, n // 2)
+               for row in pr]
+    R = -(-max(s[2] for s in streams) // 4096) * 4096
+    dl = np.zeros((8, 2, R), np.uint8)
+    for r, (d, ln, _n) in enumerate(streams):
+        dl[r, 0], dl[r, 1] = d[:R], ln[:R]
+    rargs = _on(cuda_device, dl, bits(valid), ws, wh)
+    got_runs = tgs.runs_scan(*rargs, k=31)
+    assert torch.equal(got_runs, got)
+
+
+def _runs_inputs(dev, seed):
+    dl, valid, ws, wh = long_runs_case(seed, 31, 8, LONG_N)
+    return _on(dev, dl, bits(valid), ws, wh)
+
+
+@pytest.mark.cuda
+def test_gapscan_runs_back_to_back(cuda_device, no_plain_scan):
+    """Three run scans on different inputs with no synchronisation
+    between them: each call decodes into its own bitmaps and starts its
+    long-window list empty."""
+    ins = [_runs_inputs(cuda_device, s) for s in (1, 2, 3)]
+    outs = [tgs.runs_scan(*a, k=31) for a in ins]
+    torch.cuda.synchronize()
+    for a, got in zip(ins, outs):
+        assert torch.equal(got, no_plain_scan["runs"](*a, k=31))
+
+
+@pytest.mark.cuda
+def test_gapscan_runs_two_streams(cuda_device, no_plain_scan):
+    """Run scans on two streams at once, each on its own inputs."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    ins = [_runs_inputs(cuda_device, s) for s in (4, 5)]
+    outs = []
+    for st, a in zip(streams, ins):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append([tgs.runs_scan(*a, k=31) for _ in range(3)])
+    torch.cuda.synchronize()
+    for a, got in zip(ins, outs):
+        want = no_plain_scan["runs"](*a, k=31)
+        assert all(torch.equal(g, want) for g in got)
 
 
 @pytest.fixture

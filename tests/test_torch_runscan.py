@@ -2,14 +2,20 @@
 runs_scan) against the JAX package's run program (kcftools_tpu/engine/
 device_prefix.py::_score_runs), on the CPU.
 
-A numpy model of the kernel's run front end (csrc/gapscan.cu) is written
-to its design: per row, segment totals of delta + length, an exclusive
-scan of the totals, then each segment rescanned from its offset and its
-runs cleared from a copy of the valid words, word by word. It runs at
-segment sizes 1, 3, 64 and 1,024 (the kernel's), so that segment edges
-split continuations, and its bitmaps, scanned by the model of the scan,
-must equal the JAX package exactly. ``runs_scan`` on CPU tensors (its
-plain version) must equal the JAX package too. Every statistic is an
+A numpy model of the kernel's run decode (csrc/gapscan.cu: runs_totals,
+runs_offsets, runs_paint) is written to its design: per row, segments of
+``seg`` entries whose offsets are the sums of the segments before them;
+the words where a span starts, or the stream ends, inside a word are
+zeroed; each segment paints its span [P, E) (clamped to n) and writes
+every word of it once, or-ing the words it shares with another span and
+storing the rest; the words past the stream are zeroed. The model checks
+that every word is either stored once and touched by nothing else, or
+zeroed and then or-ed by the spans that share it. It runs at segments of
+1, 3, 64, 1,024 (the kernel's) and 4,096 entries, so that segment edges
+split continuations and fall inside words, and its presence
+(valid & ~absent), scanned by the models of the scan, must equal the JAX
+package exactly. ``runs_scan`` on CPU tensors
+(its plain version) must equal the JAX package too. Every statistic is an
 integer, so every comparison is exact.
 """
 
@@ -25,38 +31,71 @@ from kcftools_tpu.engine import device_prefix as jdp
 from kcftools_tpu_torch.native import bits_to_runs
 from kcftools_tpu_torch.ops import gapscan as tgs
 
-from .test_torch_gapscan import FULL, Model, word_mask
-from .torch_gapscan_cases import N, bits, rows_case, runs_case, runs_presence
+from .test_torch_gapscan import FULL, Model, WindowModel, word_mask
+from .torch_gapscan_cases import (
+    N,
+    RUN_SEG,
+    bits,
+    long_runs_case,
+    rows_case,
+    runs_case,
+    runs_presence,
+)
 
-SEGMENTS = [1, 3, 64, 1024]
+SEGMENTS = [1, 3, 64, RUN_SEG, 4096]  # entries a segment
 
 
-def clear_run(words, s, e, n):
-    """Clear [s, e), clamped to n, from one row's words."""
-    if s >= n:
-        return
-    e = min(e, n)
-    for w in range(s >> 5, ((e - 1) >> 5) + 1):
-        words[w] &= ~word_mask(w, s, e - 1) & FULL
-
-
-def front_end(dl, valid, seg):
-    """The kernel's run front end at segment size ``seg``: (S, n/32)
-    presence words."""
+def decode(dl, valid, seg):
+    """The kernel's run decode at ``seg`` entries a segment: (S, n/32)
+    absent words."""
     S, _, R = dl.shape
     n = valid.shape[0]
-    words = np.tile(bits(valid).view("<u4").astype(np.int64), (S, 1))
-    starts = range(0, R, seg)
+    nw = n // 32
+    words = np.full((S, nw), -1, np.int64)  # not yet written
     for r in range(S):
-        dl_r = dl[r].astype(np.int64)
-        totals = [int(dl_r[:, a : a + seg].sum()) for a in starts]
-        offsets = np.cumsum([0] + totals[:-1])
-        for a, end in zip(starts, offsets.tolist()):
-            for j in range(a, min(R, a + seg)):
-                end += int(dl_r[0, j] + dl_r[1, j])
-                if dl_r[1, j]:
-                    clear_run(words[r], end - int(dl_r[1, j]), end, n)
+        d, ln = dl[r, 0].astype(np.int64), dl[r, 1].astype(np.int64)
+        ends = np.concatenate([[0], np.cumsum(d + ln)])
+        n_seg = max(1, -(-R // seg))
+        offsets = [int(ends[min(b * seg, R)]) for b in range(n_seg)]
+        end = int(ends[-1])
+        zeroed = {p >> 5 for p in offsets + [end] if p < n and p & 31}
+        words[r, list(zeroed)] = 0
+        stores, ors = np.zeros(nw, np.int64), np.zeros(nw, np.int64)
+        for b in range(n_seg):
+            a, z = b * seg, min((b + 1) * seg, R)
+            P, E = min(offsets[b], n), min(int(ends[z]), n)
+            window = {}
+            for j in range(a, z):
+                s, e = int(ends[j + 1] - ln[j]), int(ends[j + 1])
+                if ln[j] == 0 or s >= n:
+                    continue
+                for w in range(s >> 5, ((min(e, n) - 1) >> 5) + 1):
+                    window[w] = window.get(w, 0) | word_mask(w, s,
+                                                             min(e, n) - 1)
+            nwords = ((E - 1) >> 5) - (P >> 5) + 1 if E > P else 0
+            for i in range(nwords):
+                w = (P >> 5) + i
+                if (i == 0 and P & 31) or (i == nwords - 1 and E & 31):
+                    assert w in zeroed
+                    words[r, w] |= window.get(w, 0)
+                    ors[w] += 1
+                else:
+                    words[r, w] = window.get(w, 0)
+                    stores[w] += 1
+        for w in range((min(end, n) + 31) >> 5, nw):
+            words[r, w] = 0
+            stores[w] += 1
+        shared = np.zeros(nw, bool)
+        shared[list(zeroed)] = True
+        assert ((stores == 1) & (ors == 0) & ~shared
+                | (stores == 0) & (ors >= 1) & shared).all()
     return words
+
+
+def presence_words(dl, valid, seg):
+    """The presence the scan reads: valid & ~absent."""
+    vw = bits(valid).view("<u4").astype(np.int64)
+    return vw & ~decode(dl, valid, seg) & FULL
 
 
 def _cs_tot(valid):
@@ -100,20 +139,65 @@ def test_runs_case_reaches_every_edge():
 @pytest.mark.parametrize("k", [17, 31])
 @pytest.mark.parametrize("seg", SEGMENTS)
 def test_front_end_model_matches_jax_score_runs(seg, k):
+    """The decode model at ``seg`` entries a segment on the edge streams,
+    scanned by the chunk model."""
     seed = 50 + k
     dl, valid, ws, wh = runs_case(seed, k)
-    if seg == 3:  # a segment edge splits a continuation from its run
+    if seg == 3:  # a segment edge splits a continuation
         split = [(r, j) for r in range(dl.shape[0])
                  for j in range(0, dl.shape[2], seg)
                  if dl[r, 0, j] == 0 and dl[r, 1, j] == 255]
         assert split
-    words = front_end(dl, valid, seg)
+    words = presence_words(dl, valid, seg)
     pr = runs_presence(dl, valid)
     np.testing.assert_array_equal(words,
                                   bits(pr).view("<u4").astype(np.int64))
     got = np.stack([Model(row, valid, k, 1024).scan(ws, wh, 5)
                     for row in pr], axis=1)
     np.testing.assert_array_equal(got, _jax_runs(seed, k))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_long_runs(seed, k):
+    dl, valid, ws, wh = long_runs_case(seed, k, 7)
+    fn = jax.jit(functools.partial(jdp._score_runs, k=k))
+    want = fn(jnp.asarray(dl), jnp.asarray(_cs_tot(valid)),
+              jnp.asarray(ws.astype(np.int32)),
+              jnp.asarray(wh.astype(np.int32)))
+    return np.asarray(want).astype(np.int64)
+
+
+@pytest.mark.parametrize("k", [11, 16, 17, 31, 32])
+def test_decode_model_matches_jax_long(k):
+    """The kernel's decode (segments of 1,024 entries) on streams of many
+    segments (one-position runs sharing words, a dense and a sparse row,
+    zeros in the middle of a stream), its presence scanned by the window
+    model on the long windows: the rows' presence equals the streams',
+    and the sparse row's statistics the JAX run program's."""
+    seed = 120 + k
+    dl, valid, ws, wh = long_runs_case(seed, k, 7)
+    assert (dl.shape[2] > 2 * RUN_SEG
+            and (dl[:, 1] > 0).sum(1).max() > 2 * RUN_SEG)
+    words = presence_words(dl, valid, RUN_SEG)
+    pr = runs_presence(dl, valid)
+    np.testing.assert_array_equal(words,
+                                  bits(pr).view("<u4").astype(np.int64))
+    got = WindowModel(pr[2], valid, k).scan(ws, wh)
+    np.testing.assert_array_equal(got, _jax_long_runs(seed, k)[:, 2])
+
+
+@pytest.mark.parametrize("rows", [1, 8, 9])
+def test_runs_scan_cpu_matches_jax_long(rows):
+    """Groups of 1, 8 and 9 rows of multi-segment streams over a long
+    slab and its long windows."""
+    dl, valid, ws, wh = long_runs_case(130 + rows, 31, rows)
+    got = tgs.runs_scan(_t(dl), _t(bits(valid)), _t(ws), _t(wh), k=31)
+    assert got.shape == (5, rows, ws.shape[0])
+    fn = jax.jit(functools.partial(jdp._score_runs, k=31))
+    want = fn(jnp.asarray(dl), jnp.asarray(_cs_tot(valid)),
+              jnp.asarray(ws.astype(np.int32)),
+              jnp.asarray(wh.astype(np.int32)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("k", [17, 31, 45])

@@ -1,5 +1,5 @@
 """The port's gap-run prefix scan (kcftools_tpu_torch/ops/gapscan.py:
-the plain ``_scan_core`` and ``slab_scan_join`` on CPU tensors) and slab
+the plain ``_scan_core`` and ``slabs_scan_join`` on CPU tensors) and slab
 layout against the JAX package's, on the same numpy inputs. Exact: the
 statistics are integers."""
 
@@ -84,12 +84,13 @@ def test_slab_scan_matches_jax(min_count):
         jnp.asarray(ws), jnp.asarray(wh), k=k, min_count=min_count,
         wide_windows=True,
     ))
-    got = tgs.slab_scan_join(
-        torch.from_numpy(routed.view(np.int32)), torch.from_numpy(slot_map),
-        torch.from_numpy(vbits), torch.from_numpy(ws).long(),
-        torch.from_numpy(wh).long(), k=k, min_count=min_count,
+    got = tgs.slabs_scan_join(
+        torch.from_numpy(routed.view(np.int32)),
+        torch.from_numpy(slot_map[None]), torch.from_numpy(vbits[None]),
+        torch.from_numpy(ws[None]).long(), torch.from_numpy(wh[None]).long(),
+        k=k, min_count=min_count,
     )
-    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got[0].numpy(), want)
 
 
 @pytest.mark.parametrize("slab_pos", [1 << 24, 3000, 700])
