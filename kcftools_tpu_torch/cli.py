@@ -5,7 +5,8 @@ the port's copies of the JAX package's host plugins, with the port's
 getVariations (whose ``--engine device`` and ``--engine dprefix`` run on
 the GPU).
 ``KCFTOOLS_PROFILE=<dir>`` records a torch.profiler trace of the command
-into ``<dir>/trace.json``. A multi-process run joins a torch.distributed
+into ``<dir>/trace.json``, the stage timer's stages as ranges on it
+(``utils/stagetimer.py``). A multi-process run joins a torch.distributed
 process group first: ``KCFTOOLS_COORDINATOR=host:port
 KCFTOOLS_NUM_PROCS=N KCFTOOLS_PROC_ID=i`` (NCCL on CUDA devices, gloo on
 the CPU); the device mesh then spans every process's devices.

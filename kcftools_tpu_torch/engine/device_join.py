@@ -36,8 +36,12 @@ launch.
 
 With ``KCFTOOLS_STAGE_JSON`` set, the per-sample phases are timed as
 the stages djoin_pack, djoin_upload, djoin_join, djoin_scan and
-djoin_fetch, with a device synchronisation at the end of each phase;
-unset, nothing synchronises before ``collect``.
+djoin_fetch, and the per-run set-up as djoin_setup (children
+djoin_route: the tiling and slot map; djoin_statics: the layout and the
+slab statics on the host; djoin_static_upload: their copies), with a
+device synchronisation at the end of each phase; unset, nothing
+synchronises before ``collect``. The counter djoin_h2d_bytes adds up
+every byte the join copies to its devices.
 """
 
 import ctypes
@@ -58,6 +62,7 @@ from ..ops.pjoin import (
     tile_sorted,
 )
 from ..parallel.mesh import all_gather_columns
+from ..utils.stagetimer import count, stage
 from .device_prefix import _FIELDS, _Layout, _phase
 
 _CLASS = "DeviceJoin"
@@ -66,13 +71,14 @@ _JFIELDS = _FIELDS + ("count_sum",)
 
 
 class _Slabs:
-    """The scan's statics of some slabs, stacked on one device: slot maps
-    (S, pos_pad) int32, valid bitmaps (S, pos_pad/8) uint8, window bounds
-    (S, win_pad) int64 each. ``len`` is the slab count."""
+    """The scan's statics of some slabs, stacked: slot maps (S, pos_pad)
+    int32, valid bitmaps (S, pos_pad/8) uint8, window bounds (S,
+    win_pad) int64 each, built on the host; ``upload`` moves them to a
+    device. ``len`` is the slab count."""
 
     __slots__ = ("slot_maps", "valid_bits", "w_start", "w_hi")
 
-    def __init__(self, slabs, slot_of_ord, pos_pad, win_pad, dev):
+    def __init__(self, slabs, slot_of_ord, pos_pad, win_pad):
         S = len(slabs)
         slot_maps = np.zeros((S, pos_pad), np.int32)
         vbits = np.zeros((S, pos_pad // 8), np.uint8)
@@ -87,11 +93,25 @@ class _Slabs:
             ws[si] = slab["w_start"]
             wh[si] = slab["w_hi"]
         self.slot_maps, self.valid_bits, self.w_start, self.w_hi = (
-            torch.from_numpy(a).to(dev) for a in (slot_maps, vbits, ws, wh)
+            slot_maps, vbits, ws, wh)
+
+    def upload(self, dev):
+        self.slot_maps, self.valid_bits, self.w_start, self.w_hi = (
+            _h2d(a, dev) for a in (self.slot_maps, self.valid_bits,
+                                   self.w_start, self.w_hi)
         )
+        return self
 
     def __len__(self):
         return self.slot_maps.shape[0]
+
+
+def _h2d(a, dev):
+    """A host array or CPU tensor on ``dev``, its bytes counted as
+    ``djoin_h2d_bytes`` (on a CPU device too, where no copy is made)."""
+    t = torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+    count("djoin_h2d_bytes", t.nbytes)
+    return t.to(dev)
 
 
 class DeviceJoinScorer:
@@ -141,25 +161,28 @@ class DeviceJoinScorer:
     def _finalize(self):
         if self._statics is not None:
             return
-        n_ref = self._refk.shape[0]
-        b = self._pick_b(n_ref)
-        qh, ql, _tc, rank, part = tile_sorted(self._refk, self.k, b)
-        self.P = 1 << b
-        self.Tq = qh.shape[1]
-        # flattened routed slot of each reference ordinal (static)
-        slot_of_ord = (part * self.Tq + rank).astype(np.int64)
-        self._q_hi = as_i32(qh).to(self.device)
-        self._q_lo = as_i32(ql).to(self.device)
-        Logger.info(
-            _CLASS,
-            f"Reference routed: {n_ref} k-mers -> {self.P} x {self.Tq} "
-            f"query tiles ({n_ref / (self.P * self.Tq):.2f} fill)",
-        )
-
-        self._layout.finalize()
-        self._statics = _Slabs(self._layout.slabs, slot_of_ord,
-                               self._layout.pos_pad, self._layout.win_pad,
-                               self.device)
+        with _phase("djoin_setup", self.device):
+            n_ref = self._refk.shape[0]
+            with stage("djoin_route"):
+                b = self._pick_b(n_ref)
+                qh, ql, _tc, rank, part = tile_sorted(self._refk, self.k, b)
+                self.P = 1 << b
+                self.Tq = qh.shape[1]
+                # flattened routed slot of each reference ordinal (static)
+                slot_of_ord = (part * self.Tq + rank).astype(np.int64)
+            Logger.info(
+                _CLASS,
+                f"Reference routed: {n_ref} k-mers -> {self.P} x {self.Tq} "
+                f"query tiles ({n_ref / (self.P * self.Tq):.2f} fill)",
+            )
+            with stage("djoin_statics"):
+                self._layout.finalize()
+                statics = _Slabs(self._layout.slabs, slot_of_ord,
+                                 self._layout.pos_pad, self._layout.win_pad)
+            with _phase("djoin_static_upload", self.device):
+                self._q_hi = _h2d(as_i32(qh), self.device)
+                self._q_lo = _h2d(as_i32(ql), self.device)
+                self._statics = statics.upload(self.device)
 
     # -- per-sample ------------------------------------------------------
 
@@ -237,7 +260,7 @@ class DeviceJoinScorer:
             db_counts = np.ascontiguousarray(db_counts, np.uint32)
             buf, Tt, packed = self._pack_tiles(db_keys, db_counts)
         with _phase("djoin_upload", dev):
-            tiles = as_i32(buf).to(dev)  # ONE host-to-device copy
+            tiles = _h2d(as_i32(buf), dev)  # ONE host-to-device copy
         with _phase("djoin_join", dev):
             nt = self.P * Tt
             th = tiles[:nt].view(self.P, Tt)
@@ -335,38 +358,49 @@ class MeshJoinScorer(DeviceJoinScorer):
         if self._statics is not None:
             return
         mesh = self.mesh
-        n_ref = self._refk.shape[0]
-        b = self._pick_b(n_ref)
-        while (1 << b) < self.t_axis:
-            b += 1
-        qh, ql, _tc, rank, part = tile_sorted(self._refk, self.k, b)
-        self.P = 1 << b
-        self.Tq = qh.shape[1]
-        slot_of_ord = (part * self.Tq + rank).astype(np.int64)
-        pt = self.P // self.t_axis
-        # table column -> its query tiles on the column's device
-        self._q = {
-            ti: tuple(
-                as_i32(a[ti * pt : (ti + 1) * pt]).to(mesh.column_device(ti))
-                for a in (qh, ql)
+        slots = mesh.local_slots()
+        with _phase("djoin_setup", *slots):
+            n_ref = self._refk.shape[0]
+            with stage("djoin_route"):
+                b = self._pick_b(n_ref)
+                while (1 << b) < self.t_axis:
+                    b += 1
+                qh, ql, _tc, rank, part = tile_sorted(self._refk, self.k, b)
+                self.P = 1 << b
+                self.Tq = qh.shape[1]
+                slot_of_ord = (part * self.Tq + rank).astype(np.int64)
+            Logger.info(
+                _CLASS,
+                f"Reference routed: {n_ref} k-mers -> {self.P} x {self.Tq} "
+                f"query tiles across table={self.t_axis}",
             )
-            for ti in mesh.local_columns()
-        }
-        Logger.info(
-            _CLASS,
-            f"Reference routed: {n_ref} k-mers -> {self.P} x {self.Tq} "
-            f"query tiles across table={self.t_axis}",
-        )
-        self._layout.finalize(n_parts=self.d_axis)
-        slabs = self._layout.slabs
-        per = -(-max(len(slabs), 1) // self.d_axis)
-        # data row -> (device, stacked statics of its slabs)
-        self._statics = []
-        for di in range(self.d_axis):
-            dev = mesh.row_device(di)
-            self._statics.append((dev, _Slabs(
-                slabs[di * per : (di + 1) * per], slot_of_ord,
-                self._layout.pos_pad, self._layout.win_pad, dev)))
+            pt = self.P // self.t_axis
+            with _phase("djoin_static_upload", *slots):
+                # table column -> its query tiles on the column's device
+                self._q = {
+                    ti: tuple(
+                        _h2d(as_i32(a[ti * pt : (ti + 1) * pt]),
+                             mesh.column_device(ti))
+                        for a in (qh, ql)
+                    )
+                    for ti in mesh.local_columns()
+                }
+            with stage("djoin_statics"):
+                self._layout.finalize(n_parts=self.d_axis)
+            slabs = self._layout.slabs
+            per = -(-max(len(slabs), 1) // self.d_axis)
+            # data row -> (device, stacked statics of its slabs), each
+            # row built, uploaded and its host arrays freed in turn
+            statics = []
+            for di in range(self.d_axis):
+                dev = mesh.row_device(di)
+                with stage("djoin_statics"):
+                    row = _Slabs(slabs[di * per : (di + 1) * per],
+                                 slot_of_ord, self._layout.pos_pad,
+                                 self._layout.win_pad)
+                with _phase("djoin_static_upload", dev):
+                    statics.append((dev, row.upload(dev)))
+            self._statics = statics
 
     def submit(self, key, ref_keys, db_keys, db_counts):
         self._finalize()
@@ -383,7 +417,7 @@ class MeshJoinScorer(DeviceJoinScorer):
         )
         with _phase("djoin_upload", *slots):
             tiles = {
-                ti: [as_i32(a[ti * pt : (ti + 1) * pt]).to(q[0].device)
+                ti: [_h2d(as_i32(a[ti * pt : (ti + 1) * pt]), q[0].device)
                      for a in planes]
                 for ti, q in self._q.items()
             }

@@ -20,6 +20,7 @@ import os
 import numpy as np
 
 from ..utils.logger import Logger
+from ..utils.stagetimer import count, stage
 from .encode import canonicalize, pack_kmers
 
 _CLASS = "RefKmerIndex"
@@ -262,31 +263,34 @@ class RefKmerIndex:
                         else:
                             obj = cls(z["kmers"], names, ridx, k, canonical)
                         Logger.info(_CLASS, f"Loaded cached index: {path}")
+                        count("refindex_built", 0)
                         return obj
             except Exception as e:
                 Logger.warning(_CLASS, f"Ignoring bad index cache {path}: {e}")
-        obj = cls.build(index, k, canonical)
-        try:
-            payload = {
-                "format_version": np.array([_FORMAT_VERSION]),
-                "chrom_names": np.array(obj.chrom_names),
-            }
-            if obj.wide:
-                payload["kmers_hi"] = obj.kmers_hi
-                payload["kmers_lo"] = obj.kmers_lo
-            else:
-                payload["kmers"] = obj.kmers
-            for i, n in enumerate(obj.chrom_names):
-                payload[f"ridx_{i}"] = obj.chrom_r_idx[n]
-            # Write-then-rename: a concurrent reader must never see a
-            # truncated cache and two writers must not interleave.
-            tmp = f"{path}.{os.getpid()}.tmp.npz"
-            np.savez(tmp, **payload)
-            os.replace(tmp, path)
-            Logger.info(_CLASS, f"Cached index: {path}")
-        except Exception as e:
-            Logger.warning(_CLASS, f"Could not cache index at {path}: {e}")
-        return obj
+        count("refindex_built", 1)
+        with stage("refindex_build"):  # the build and its cache write
+            obj = cls.build(index, k, canonical)
+            try:
+                payload = {
+                    "format_version": np.array([_FORMAT_VERSION]),
+                    "chrom_names": np.array(obj.chrom_names),
+                }
+                if obj.wide:
+                    payload["kmers_hi"] = obj.kmers_hi
+                    payload["kmers_lo"] = obj.kmers_lo
+                else:
+                    payload["kmers"] = obj.kmers
+                for i, n in enumerate(obj.chrom_names):
+                    payload[f"ridx_{i}"] = obj.chrom_r_idx[n]
+                # Write-then-rename: a concurrent reader must never see a
+                # truncated cache and two writers must not interleave.
+                tmp = f"{path}.{os.getpid()}.tmp.npz"
+                np.savez(tmp, **payload)
+                os.replace(tmp, path)
+                Logger.info(_CLASS, f"Cached index: {path}")
+            except Exception as e:
+                Logger.warning(_CLASS, f"Could not cache index at {path}: {e}")
+            return obj
 
 
 class FeatureKmerIndex:

@@ -29,6 +29,7 @@ import zipfile
 import numpy as np
 
 from ..utils.logger import Logger
+from ..utils.stagetimer import count
 
 _CLASS = "KMC"
 _HEADER_BYTES = 68  # k..version inclusive: 7*u32 + u64 + 4*u8 + 6*u32 + u32
@@ -438,7 +439,7 @@ def load_sorted_cache(db_prefix: str, k: int):
     (keys, counts) - keys uint64 for k <= 32, an (hi, lo) pair for
     33..64 - or None when absent/stale. The cache spares every later
     run the KMC-record decode + radix sort, the dominant per-sample
-    ingest cost."""
+    ingest cost. A hit adds 0 to the stage timer's ``sidecar_built``."""
     path = sorted_cache_path(db_prefix, k)
     try:
         m = os.path.getmtime(path)
@@ -461,15 +462,17 @@ def load_sorted_cache(db_prefix: str, k: int):
                 if tuple(z["src_sizes"]) != sizes:
                     return None
             counts = z["counts"]
-            if "keys_hi" in z:
-                return (z["keys_hi"], z["keys_lo"]), counts
-            return z["keys"], counts
+            keys = ((z["keys_hi"], z["keys_lo"]) if "keys_hi" in z
+                    else z["keys"])
+        count("sidecar_built", 0)
+        return keys, counts
     except (OSError, KeyError, ValueError, zipfile.BadZipFile):
         return None
 
 
 def save_sorted_cache(db_prefix: str, k: int, keys, counts) -> None:
-    """Best-effort atomic write of the sorted-key sidecar."""
+    """Best-effort atomic write of the sorted-key sidecar; a written one
+    adds 1 to the stage timer's ``sidecar_built``."""
     path = sorted_cache_path(db_prefix, k)
     payload = {"format_version": np.array([1]),
                "counts": np.asarray(counts, np.uint32)}
@@ -488,6 +491,7 @@ def save_sorted_cache(db_prefix: str, k: int, keys, counts) -> None:
         tmp = f"{path}.{os.getpid()}.tmp.npz"
         np.savez(tmp, **payload)
         os.replace(tmp, path)
+        count("sidecar_built", 1)
     except OSError as e:
         Logger.warning(_CLASS, f"Could not cache sorted DB at {path}: {e}")
 

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..engine.device_join import DeviceJoinScorer
-from ..engine.device_prefix import DevicePrefixScorer
+from ..engine.device_prefix import DevicePrefixScorer, _phase
 from ..engine.hashtable import build_table
 from ..engine.hostscan import WORTH_SAMPLES, OrdinalWindowScanner
 from ..engine.pipeline import WindowScorer, combine_u8
@@ -73,7 +73,12 @@ from ..parallel.mesh import make_mesh
 from ..parallel.sharded import ShardedWindowScorer
 from ..torchinit import ENV, VIRTUAL_ENV, process_index, resolve_devices
 from ..utils.logger import Logger
-from ..utils.stagetimer import dump as stage_dump, reset as stage_reset, stage
+from ..utils.stagetimer import (
+    count as stage_count,
+    dump as stage_dump,
+    reset as stage_reset,
+    stage,
+)
 from ._common import clean_sample_name, get_command_line
 
 _CLASS = "GetVariants"
@@ -212,9 +217,17 @@ def _resolve_engine(args):
 def run(args):
     """Single- or multi-sample screening (-k a,b,c -s sa,sb,sc): the
     reference parse, k-mer index and window plan are built once and
-    every sample adds one KMC ingest, one join and the window stats."""
+    every sample adds one KMC ingest, one join and the window stats.
+    With KCFTOOLS_STAGE_JSON set, the call is the stage
+    ``getVariations`` and its stages are written when it closes."""
     _validate(args)
     stage_reset()
+    with stage("getVariations"):
+        _screen(args)
+    stage_dump()
+
+
+def _screen(args):
     args.engine = _resolve_engine(args)
     devices = []
     if args.engine in ("device", "dprefix"):
@@ -243,8 +256,12 @@ def run(args):
     else:
         outputs = [args.output]
 
-    index = FastaIndex(args.reference)
-    gtf = GTF(args.gtf) if args.feature in ("gene", "transcript") else None
+    with stage("fasta_index"):
+        index = FastaIndex(args.reference)
+    gtf = None
+    if args.feature in ("gene", "transcript"):
+        with stage("gtf_parse"):
+            gtf = GTF(args.gtf)
 
     def _ingest(db_prefix):
         """KMC decode + key sort (or the sorted sidecar), or for the
@@ -322,13 +339,14 @@ def run(args):
                 _run_hash_sample(args, index, gtf, k, scorer, sample,
                                  out_path)
                 continue
-            if hash_scorer is None or hash_scorer.k != k or (
-                hash_scorer.both_strands != kmc.both_strands
-            ):
-                hash_scorer = WindowScorer(table, devices[0].device,
-                                           min_count=args.min_k_count)
-            else:
-                hash_scorer.set_table(table)
+            with _phase("hash_table_upload", devices[0].device):
+                if hash_scorer is None or hash_scorer.k != k or (
+                    hash_scorer.both_strands != kmc.both_strands
+                ):
+                    hash_scorer = WindowScorer(table, devices[0].device,
+                                               min_count=args.min_k_count)
+                else:
+                    hash_scorer.set_table(table)
             _run_hash_sample(args, index, gtf, k, hash_scorer, sample,
                              out_path)
             continue
@@ -338,10 +356,12 @@ def run(args):
             if group:
                 _flush_group()  # a k change invalidates the device state
             if args.feature == "window":
-                refidx = RefKmerIndex.load_or_build(
-                    args.reference, index, k, canonical=kmc.both_strands
-                )
-                plan = _build_window_plan(args, index, refidx, k)
+                with stage("refindex_load"):
+                    refidx = RefKmerIndex.load_or_build(
+                        args.reference, index, k, canonical=kmc.both_strands
+                    )
+                with stage("plan_load"):
+                    plan = _build_window_plan(args, index, refidx, k)
             else:
                 refidx = FeatureKmerIndex.build(
                     index, gtf, k, kmc.both_strands,
@@ -370,7 +390,6 @@ def run(args):
         pool.shutdown(wait=False)
     if dscorer is not None:
         dscorer.close()
-    stage_dump()
 
 
 def _make_positional_scorer(args, refidx, plan, k, devices, n_samples):
@@ -568,6 +587,7 @@ def _build_window_plan(args, index, refidx, k):
             "total": total,
             "eff": eff,
         }
+    stage_count("plan_built", int(cached is None))
     if cached is None:
         try:
             payload = {
@@ -991,7 +1011,8 @@ def _score_fixed_windows(args, index, name, k, scorer, sample):
         return _score_fixed_windows_batched(
             args, name, k, scorer, sample, codes, valid, starts, ends
         )
-    u8 = combine_u8(codes, valid)
+    with stage("hash_pad"):
+        u8 = combine_u8(codes, valid)
     C, c_step, Lp, B = _chunk_geometry(args.window, args.step, k)
     win_len = (ends - starts).astype(np.int64)
     chunk_of = starts // c_step
@@ -1002,25 +1023,27 @@ def _score_fixed_windows(args, index, name, k, scorer, sample):
         sel = np.flatnonzero(chunk_of == c)
         if sel.size == 0:
             continue
-        base = c * c_step
-        chunk = u8[base : base + C]
-        if chunk.shape[0] < C:
-            chunk = np.concatenate(
-                [chunk, np.full(C - chunk.shape[0], 4, np.uint8)]
-            )
-        cstarts = np.zeros(B, np.int64)
-        cwl = np.zeros(B, np.int64)
-        cstarts[: sel.size] = starts[sel] - base
-        cwl[: sel.size] = win_len[sel]
+        with stage("hash_pad"):
+            base = c * c_step
+            chunk = u8[base : base + C]
+            if chunk.shape[0] < C:
+                chunk = np.concatenate(
+                    [chunk, np.full(C - chunk.shape[0], 4, np.uint8)]
+                )
+            cstarts = np.zeros(B, np.int64)
+            cwl = np.zeros(B, np.int64)
+            cstarts[: sel.size] = starts[sel] - base
+            cwl[: sel.size] = win_len[sel]
         handles.append(
             (scorer.score_chunk_async(chunk, cstarts, cwl, Lp), sel)
         )
     res = {}
-    for handle, sel in handles:
-        for key, v in scorer.collect(handle).items():
-            res.setdefault(key, np.zeros(len(starts), np.int64))[sel] = (
-                v[: sel.size]
-            )
+    with stage("hash_fetch"):
+        for handle, sel in handles:
+            for key, v in scorer.collect(handle).items():
+                res.setdefault(key, np.zeros(len(starts), np.int64))[sel] = (
+                    v[: sel.size]
+                )
     ids = [f"{name}_{s}" for s in starts]
     return _make_block(sample, name, starts, ends, ids, res, k)
 
@@ -1033,15 +1056,17 @@ def _score_fixed_windows_batched(args, name, k, scorer, sample, codes,
     bsz = max(1, _BATCH_POSITIONS // pad_len)
     handles = []
     for off in range(0, len(starts), bsz):
-        bcodes, bvalid, win_len = batch_subsequences(
-            codes, valid, starts[off : off + bsz], ends[off : off + bsz],
-            pad_len,
-        )
+        with stage("hash_pad"):
+            bcodes, bvalid, win_len = batch_subsequences(
+                codes, valid, starts[off : off + bsz],
+                ends[off : off + bsz], pad_len,
+            )
         handles.append(scorer.score_batch_async(bcodes, bvalid, win_len))
     parts = {}
-    for handle in handles:
-        for key, v in scorer.collect(handle).items():
-            parts.setdefault(key, []).append(v)
+    with stage("hash_fetch"):
+        for handle in handles:
+            for key, v in scorer.collect(handle).items():
+                parts.setdefault(key, []).append(v)
     res = {key: np.concatenate(vs) for key, vs in parts.items()}
     ids = [f"{name}_{s}" for s in starts]
     return _make_block(sample, name, starts, ends, ids, res, k)
@@ -1077,34 +1102,40 @@ def _score_feature_windows(args, index, gtf, name, k, scorer, sample):
         return None
 
     spliced = []
-    for wid, _chrom, _start, _end in feats:
-        cv = gtf.spliced_codes(wid, index, is_gene)
-        if cv is None:
-            Logger.error(_CLASS, f"Fasta object is null for window: {wid}")
-        spliced.append(cv)
+    with stage("hash_splice"):
+        for wid, _chrom, _start, _end in feats:
+            cv = gtf.spliced_codes(wid, index, is_gene)
+            if cv is None:
+                Logger.error(_CLASS,
+                             f"Fasta object is null for window: {wid}")
+            spliced.append(cv)
 
     buckets = {}
     for i, (c, _v) in enumerate(spliced):
         buckets.setdefault(bucket_pad_len(len(c), k), []).append(i)
 
+    # the submits stay outside the stages: they queue work on the
+    # device and return, and a stage would not wait for it
     handles = []
     for pad_len, idxs in buckets.items():
         bsz = max(1, _BATCH_POSITIONS // pad_len)
         for off in range(0, len(idxs), bsz):
             part = idxs[off : off + bsz]
-            bcodes, bvalid, win_len = pad_batch_varlen(
-                [spliced[i][0] for i in part],
-                [spliced[i][1] for i in part],
-                pad_len,
-            )
+            with stage("hash_pad"):
+                bcodes, bvalid, win_len = pad_batch_varlen(
+                    [spliced[i][0] for i in part],
+                    [spliced[i][1] for i in part],
+                    pad_len,
+                )
             handles.append(
                 (scorer.score_batch_async(bcodes, bvalid, win_len), part)
             )
 
     res = {}
-    for handle, part in handles:
-        for key, v in scorer.collect(handle).items():
-            res.setdefault(key, np.zeros(len(feats), np.int64))[part] = v
+    with stage("hash_fetch"):
+        for handle, part in handles:
+            for key, v in scorer.collect(handle).items():
+                res.setdefault(key, np.zeros(len(feats), np.int64))[part] = v
     return _make_block(
         sample, [f[1] for f in feats], [f[2] for f in feats],
         [f[3] for f in feats], [f[0] for f in feats], res, k,
