@@ -9,7 +9,8 @@ prints the kernels' record with no launch counts):
   1. device   - the card's name, and its name and power limit as
                 nvidia-smi reports them;
   2. build    - nvcc builds the port's kernels from csrc/ (pjoin.cu,
-                gapscan.cu and hashscan.cu, all builds at once; their ptxas
+                gapscan.cu, hashscan.cu and route.cu, all builds at once;
+                their ptxas
                 registers and spills are printed), and g++ the port's
                 native host library into kcftools_tpu_torch/_build - timed;
   3. kernels  - each kernel against its plain torch version on the
@@ -50,7 +51,14 @@ prints the kernels' record with no launch counts):
                 beside two gather yardsticks of the same bucket rows
                 (``gather_ms``: one ``torch.index_select``; ``take_ms``:
                 one ``torch.take`` of their int64 words), the card's rate
-                for random 48-byte rows through PyTorch;
+                for random 48-byte rows through PyTorch. The device
+                join's reference routing (route_reference: the query
+                tiles; route_slabs: the slot maps and valid bitmaps) on
+                the cases of tests/torch_route_cases.py and at the lettuce
+                cell's shapes (ROUTE_KEYS keys in 2^16 partitions, 3 slabs
+                of 2^24 positions), timed there beside the bound (and, for
+                the slot maps, the sector floor of their gather) and the
+                host numpy they replaced (``host_ms``);
   4. slice    - synthesises a 40 Mbp reference in 4 chromosomes (N runs
                 sprinkled) and 3 KMC samples at 1% SNPs (the third with
                 counts > 255 up to 2^32 - 1, so both kernel variants
@@ -58,7 +66,8 @@ prints the kernels' record with no launch counts):
                 --engine device`` (k = 31) through the port's CLI, cold
                 and warm, with the kernel launch counters zeroed just
                 before each (one join launch and one scan launch per
-                sample); checks the KCF bytes against the
+                sample, one launch of each routing wrapper a call);
+                checks the KCF bytes against the
                 port's
                 ``--engine hybrid`` (host) output, the window count and
                 that jax never loaded; prints windows/s and the
@@ -171,8 +180,17 @@ KERNELS = {
                    "kcftools_tpu/ops/lookup.py:36"),
     "hash_scan": ("hash_scan", "launches", "csrc/hashscan.cu",
                   "kcftools_tpu/engine/pipeline.py:192"),
+    # host work moved to kernels: no TPU kernel or XLA program
+    "route_reference": ("route_reference", "launches", "csrc/route.cu",
+                        "host numpy: kcftools_tpu_torch/ops/pjoin.py:170 "
+                        "tile_sorted and the slot of each key"),
+    "route_slabs": ("route_slabs", "launches", "csrc/route.cu",
+                    "host numpy: the device join's slot maps "
+                    "(slot_of_ord[r_idx]) and np.packbits"),
 }
-MAIN_PATH = ("pjoin_packed", "pjoin_u32", "gapscan_join")  # phase 4
+MAIN_PATH = ("pjoin_packed", "pjoin_u32", "gapscan_join", "route_reference",
+             "route_slabs")  # phase 4
+ROUTE = ("route_reference", "route_slabs")  # once a call
 # the hash engine's shapes: a gene batch of ~2^22 positions (the
 # power-of-two bucket of 4-8 kb features), the mesh's -w 5000 window
 # batch (2^22 // 5032 rows) and the batch of the longest features (2^22
@@ -181,14 +199,20 @@ MAIN_PATH = ("pjoin_packed", "pjoin_u32", "gapscan_join")  # phase 4
 HASH_GENE, HASH_WINDOW, HASH_LONG = (512, 8192), (833, 5032), (4, 1 << 20)
 HASH_KEYS = 44_000_000
 HASH_SECTOR = 64  # a 48-byte bucket row always spans two 32-byte sectors
+# the device join's reference routing at the lettuce cell's shapes: ~39.9 M
+# reference k-mers in 2^ROUTE_B quantile partitions, ROUTE_SLABS slabs of
+# DJOIN_SLAB positions, ROUTE_DEAD of them with no valid k-mer
+ROUTE_KEYS, ROUTE_B, ROUTE_SLABS, ROUTE_DEAD = 39_900_000, 16, 3, 0.05
 
 
 def _wrapper(name):
-    from kcftools_tpu_torch.ops import gapscan, hashscan, pjoin
+    from kcftools_tpu_torch.ops import gapscan, hashscan, pjoin, route
 
     fn = KERNELS[name][0]
     if fn == "pjoin_join":
         return pjoin.pjoin_join
+    if fn.startswith("route"):
+        return getattr(route, fn)
     return getattr(hashscan if fn.startswith("hash") else gapscan, fn)
 
 
@@ -978,6 +1002,152 @@ def check_hash(dev, seed):
     return rows
 
 
+# -- phase 3: the device join's reference routing -------------------------
+
+def _route_edges(dev):
+    """Both routing kernels bit-exact against their plain versions (on the
+    CPU) on the cases of tests/torch_route_cases.py; returns how many."""
+    from kcftools_tpu_torch.ops import route as rt
+    from tests.torch_route_cases import CASES, KS, route_case
+
+    n = 0
+    for k in KS:
+        for case in CASES:
+            keys, b, r_idx = route_case(case, k, seed=k)
+            kt = torch.from_numpy(keys.view(np.int64))
+            rt_idx = torch.from_numpy(r_idx)
+            got = rt.route_reference(kt.to(dev), k, b)
+            got += rt.route_slabs(rt_idx.to(dev), got[2])
+            want = rt.route_reference_ref(kt, k, b)
+            want += rt.route_slabs_ref(rt_idx, want[2])
+            for g, w in zip(got, want):
+                if g.shape != w.shape or not torch.equal(g.cpu(), w):
+                    fail(f"route k={k} {case}: the kernels differ from the "
+                         "plain version")
+            n += 1
+    return n
+
+
+def route_operands(dev, seed):
+    """Sorted unique int64 keys of about the canonical k-mer distribution
+    (the smaller of two uniform 62-bit values) and (ROUTE_SLABS,
+    DJOIN_SLAB) int32 reference ordinals, ROUTE_DEAD of them -1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    draws = [torch.randint(0, 1 << 62, (ROUTE_KEYS,), generator=g,
+                           device=dev) for _ in range(2)]
+    keys = torch.unique(torch.minimum(*draws))
+    del draws
+    shape = (ROUTE_SLABS, DJOIN_SLAB)
+    r_idx = torch.randint(0, keys.shape[0], shape, generator=g, device=dev)
+    dead = torch.rand(shape, generator=g, device=dev) < ROUTE_DEAD
+    return keys, torch.where(dead, -1, r_idx).to(torch.int32)
+
+
+def route_bytes(n, P, Tq, r_idx):
+    """(route_reference's bytes, route_slabs' bytes, route_slabs' sector
+    floor): each kernel reads its operands once and writes its outputs
+    once. route_reference: the starts launch reads the keys and writes
+    start, the width launch reads start, the tiles launch reads the keys
+    and start and writes the (P, Tq) tiles whole and the slot of each key.
+    route_slabs: r_idx read, a 4-byte slot gathered a live position (32
+    bytes, a sector, in the floor), the slot maps and valid bitmaps
+    written."""
+    start = 8 * (P + 1)
+    ref = 8 * n + 3 * start + 8 * n + 8 * P * Tq + 4 * n
+    pos = r_idx.numel()
+    live = int((r_idx >= 0).sum())
+    base = 4 * pos + 4 * pos + pos // 8
+    return ref, base + 4 * live, base + SECTOR_BYTES * live
+
+
+def _host_routing_ms(keys, r_idx, k, b):
+    """The host numpy the kernels replaced on the main path, ms:
+    ``tile_sorted`` and the slot of each key; the slot maps and packed
+    valid bitmaps of the slabs."""
+    from kcftools_tpu_torch.ops.pjoin import tile_sorted
+    from tests.torch_route_cases import host_slabs
+
+    keys = keys.cpu().numpy().view(np.uint64)
+    r_idx = r_idx.cpu().numpy()
+    t0 = time.perf_counter()
+    qh, _ql, _tc, rank, part = tile_sorted(keys, k, b)
+    slot_of_ord = (part * qh.shape[1] + rank).astype(np.int64)
+    t1 = time.perf_counter()
+    host_slabs(r_idx, slot_of_ord)
+    return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+
+def check_route(dev, seed):
+    """Both routing kernels bit-exact against their plain versions on the
+    edge cases and at the lettuce cell's shapes (ROUTE_KEYS keys, 2^ROUTE_B
+    partitions, ROUTE_SLABS slabs of DJOIN_SLAB positions), then timed
+    there: the wrapper call's ms (route_reference's includes its one
+    scalar read back), device_ms (route_reference's two entry points
+    captured with the Tq found), the plain version on the card, and the
+    host numpy they replaced (``host_ms``), beside the bound."""
+    from kcftools_tpu_torch.ops import _kernels
+    from kcftools_tpu_torch.ops import route as rt
+
+    n_edge = _route_edges(dev)
+    keys, r_idx = route_operands(dev, seed + 15)
+    n, b, P = keys.shape[0], ROUTE_B, 1 << ROUTE_B
+    qh, ql, slot = rt.route_reference(keys, K, b)
+    sm, vb = rt.route_slabs(r_idx, slot)
+    want = rt.route_reference_ref(keys, K, b)
+    want += rt.route_slabs_ref(r_idx, want[2])
+    torch.cuda.synchronize()
+    for name, g, w in zip(("qh", "ql", "slot_of_ord", "slot_maps",
+                           "valid_bits"), (qh, ql, slot, sm, vb), want):
+        if g.shape != w.shape or not torch.equal(g, w):
+            fail(f"route at the cell's shape: {name} differs from the "
+                 "plain version")
+    del want, sm, vb
+    Tq = qh.shape[1]
+    ref_bytes, slab_bytes, slab_floor = route_bytes(n, P, Tq, r_idx)
+    start = torch.empty(P + 1, dtype=torch.int64, device=dev)
+    width = torch.empty(1, dtype=torch.int64, device=dev)
+
+    def entries():
+        _kernels.launch("kcf_route_starts", keys, n, K, b, start, width)
+        _kernels.launch("kcf_route_tiles", keys, n, K, b, start, Tq, qh, ql,
+                        slot)
+
+    host_ref_ms, host_slab_ms = _host_routing_ms(keys, r_idx, K, b)
+    shape = (f"{n} keys, P={P}, Tq={Tq}, {ROUTE_SLABS} slabs of "
+             f"{DJOIN_SLAB}")
+    rows = {}
+    for name, fn, ref, nbytes, host_ms in (
+            ("route_reference", lambda: rt.route_reference(keys, K, b),
+             lambda: rt.route_reference_ref(keys, K, b), ref_bytes,
+             host_ref_ms),
+            ("route_slabs", lambda: rt.route_slabs(r_idx, slot),
+             lambda: rt.route_slabs_ref(r_idx, slot), slab_bytes,
+             host_slab_ms)):
+        if name == "route_reference":
+            # its scalar read back cannot be captured: the wrapper's ms
+            # alone, and the entry points' device_ms
+            for _ in range(3):
+                fn()
+                entries()
+            row = {"ms": _event_ms(fn, 20), "device_ms": _device_ms(entries),
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes", "plain_ms": _event_ms(ref, 1)}
+            row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        else:
+            row = _times(fn, ref, nbytes)
+            row["sector_floor_ms"] = slab_floor / HBM_BYTES_PER_S * 1e3
+            row["sector_floor_share"] = (row["sector_floor_ms"]
+                                         / row["device_ms"])
+        row = {"max_abs_err": 0, "library_ms": None, "bound_bytes": nbytes,
+               **row, "host_ms": host_ms}
+        log(f"{name}: exact on {n_edge} edge cases and at {shape}; "
+            f"{json.dumps(row)}")
+        rows[name] = row
+    del keys, r_idx, qh, ql, slot, start, width
+    torch.cuda.empty_cache()
+    return rows
+
+
 # -- phase 4: synthetic data --------------------------------------------
 
 def _write_fasta(path, chroms):
@@ -1156,6 +1326,10 @@ def run_slice(root, ref, dbs, chrom_len):
             fail(f"{run_launches['gapscan_join']} scan launches for "
                  f"{len(dbs)} samples of {n_slabs} slabs, want one per "
                  "sample")
+        for name in ROUTE:
+            if run_launches[name] != 1:
+                fail(f"{run_launches[name]} {name} launches in a call, "
+                     "want one: the call routes its reference on the card")
     check_same(cold_kcf, host_kcf, n_win, "device engine, cold")
     check_same(dev_kcf, host_kcf, n_win, "device engine")
     if "jax" in sys.modules:
@@ -1623,6 +1797,7 @@ def main():
     rows = check_kernels(dev, args.seed, MAIN_P, MAIN_TQ, MAIN_TT)
     rows.update(check_scan(dev, args.seed))
     rows.update(check_hash(dev, args.seed))
+    rows.update(check_route(dev, args.seed))
 
     launches = (dict.fromkeys(KERNELS) if args.kernels_only
                 else run_paths(args, smi))

@@ -29,6 +29,8 @@ Layout (mirrors kcftools_tpu):
   ops/kmerize.py        canonical (hi, lo) k-mers of padded windows
   ops/lookup.py         bucketed hash-table lookup
   ops/gapscan.py        the window gap-run scan kernel's wrappers
+  ops/route.py          the device join's reference routing kernels'
+                        wrappers and plain versions
   ops/hashscan.py       the hash engine's probe and scan kernels'
                         wrappers and plain versions
   engine/device_prefix  the gap-run prefix scan, slab layout and

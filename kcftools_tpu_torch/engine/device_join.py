@@ -3,11 +3,13 @@
 Port of kcftools_tpu/engine/device_join.py::DeviceJoinScorer, the
 engine behind ``getVariations --engine device`` at k <= 32.
 
-  per REFERENCE (once, device-resident):
-    - the sorted unique reference k-mers are quantile-tiled into static
-      (P, Tq) query tiles (ops/pjoin.tile_sorted) and uploaded;
-    - per window-aligned slab: the int32 slot map position -> flattened
-      routed slot, the packed valid bitmap and the window bounds.
+  per REFERENCE (once a call, device-resident):
+    - the sorted unique reference k-mers, each window-aligned slab's
+      reference ordinals (r_idx) and its window bounds are uploaded;
+    - on the device (ops/route.py, the kernels csrc/route.cu on CUDA):
+      the keys are quantile-tiled into static (P, Tq) query tiles, and
+      each slab gets its int32 slot map position -> flattened routed
+      slot and its packed valid bitmap; the keys are then freed.
   per SAMPLE:
     - the sorted (keys, counts) are quantile-sliced into one flat
       [hi | lo | counts] buffer by the shared native packer (counts
@@ -37,11 +39,13 @@ launch.
 With ``KCFTOOLS_STAGE_JSON`` set, the per-sample phases are timed as
 the stages djoin_pack, djoin_upload, djoin_join, djoin_scan and
 djoin_fetch, and the per-run set-up as djoin_setup (children
-djoin_route: the tiling and slot map; djoin_statics: the layout and the
-slab statics on the host; djoin_static_upload: their copies), with a
-device synchronisation at the end of each phase; unset, nothing
-synchronises before ``collect``. The counter djoin_h2d_bytes adds up
-every byte the join copies to its devices.
+djoin_statics: the slab layout on the host and the slot-map launch;
+djoin_static_upload: the copies of the keys, r_idx and window bounds;
+djoin_route: the query tiles' launches), with a device synchronisation
+at the end of each phase; unset, nothing synchronises before
+``collect``. The counter djoin_h2d_bytes adds up every byte the join
+copies to its devices; djoin_route_on_card adds 1 for a set-up routed by
+the kernels, 0 for one routed by the plain torch version (a CPU device).
 """
 
 import ctypes
@@ -59,8 +63,8 @@ from ..ops.pjoin import (
     as_i32,
     pjoin_join,
     quantile_partition_ids,
-    tile_sorted,
 )
+from ..ops.route import route_reference, route_slabs
 from ..parallel.mesh import all_gather_columns
 from ..utils.stagetimer import count, stage
 from .device_prefix import _FIELDS, _Layout, _phase
@@ -71,39 +75,34 @@ _JFIELDS = _FIELDS + ("count_sum",)
 
 
 class _Slabs:
-    """The scan's statics of some slabs, stacked: slot maps (S, pos_pad)
-    int32, valid bitmaps (S, pos_pad/8) uint8, window bounds (S,
-    win_pad) int64 each, built on the host; ``upload`` moves them to a
-    device. ``len`` is the slab count."""
+    """The scan's statics of some slabs, stacked on one device: slot maps
+    (S, pos_pad) int32, valid bitmaps (S, pos_pad/8) uint8, window bounds
+    (S, win_pad) int64 each. Made by uploading the slabs' reference
+    ordinals (r_idx) and window bounds; ``route`` then builds the slot
+    maps and valid bitmaps on the device and frees r_idx. ``len`` is the
+    slab count."""
 
-    __slots__ = ("slot_maps", "valid_bits", "w_start", "w_hi")
+    __slots__ = ("r_idx", "slot_maps", "valid_bits", "w_start", "w_hi")
 
-    def __init__(self, slabs, slot_of_ord, pos_pad, win_pad):
-        S = len(slabs)
-        slot_maps = np.zeros((S, pos_pad), np.int32)
-        vbits = np.zeros((S, pos_pad // 8), np.uint8)
-        ws = np.zeros((S, win_pad), np.int64)
-        wh = np.zeros((S, win_pad), np.int64)
-        for si, slab in enumerate(slabs):
-            r_idx = slab["r_idx"]
-            live = r_idx >= 0
-            slot_maps[si, live] = slot_of_ord[r_idx[live]]
-            packed = np.packbits(live, bitorder="little")
-            vbits[si, : packed.shape[0]] = packed
-            ws[si] = slab["w_start"]
-            wh[si] = slab["w_hi"]
-        self.slot_maps, self.valid_bits, self.w_start, self.w_hi = (
-            slot_maps, vbits, ws, wh)
-
-    def upload(self, dev):
-        self.slot_maps, self.valid_bits, self.w_start, self.w_hi = (
-            _h2d(a, dev) for a in (self.slot_maps, self.valid_bits,
-                                   self.w_start, self.w_hi)
+    def __init__(self, slabs, pos_pad, win_pad, dev):
+        self.r_idx = _h2d_rows([s["r_idx"] for s in slabs], pos_pad,
+                               torch.int32, dev)
+        self.w_start, self.w_hi = (
+            _h2d_rows([s[key] for s in slabs], win_pad, torch.int64, dev)
+            for key in ("w_start", "w_hi")
         )
+        self.slot_maps = self.valid_bits = None
+
+    def route(self, slot_of_ord):
+        """The slot maps and valid bitmaps from ``route_reference``'s
+        slot of each reference ordinal (moved to this device)."""
+        self.slot_maps, self.valid_bits = route_slabs(
+            self.r_idx, slot_of_ord.to(self.r_idx.device))
+        self.r_idx = None
         return self
 
     def __len__(self):
-        return self.slot_maps.shape[0]
+        return self.w_start.shape[0]
 
 
 def _h2d(a, dev):
@@ -112,6 +111,26 @@ def _h2d(a, dev):
     t = torch.from_numpy(a) if isinstance(a, np.ndarray) else a
     count("djoin_h2d_bytes", t.nbytes)
     return t.to(dev)
+
+
+def _h2d_rows(arrays, width, dtype, dev):
+    """Host arrays of ``width`` entries as the rows of one (len, width)
+    tensor of ``dtype`` on ``dev``, each row copied from its array, which
+    is first cast to ``dtype`` on the host where it differs; the copied
+    bytes counted as ``djoin_h2d_bytes``."""
+    out = torch.empty((len(arrays), width), dtype=dtype, device=dev)
+    for row, a in zip(out, arrays):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+        count("djoin_h2d_bytes", t.nbytes)
+        row.copy_(t)
+    return out
+
+
+def _ref_keys(refk):
+    """The sorted uint64 reference k-mers as an int64 CPU tensor of the
+    same bits."""
+    return torch.from_numpy(np.ascontiguousarray(refk, np.uint64)
+                            .view(np.int64))
 
 
 class DeviceJoinScorer:
@@ -161,28 +180,39 @@ class DeviceJoinScorer:
     def _finalize(self):
         if self._statics is not None:
             return
-        with _phase("djoin_setup", self.device):
-            n_ref = self._refk.shape[0]
-            with stage("djoin_route"):
-                b = self._pick_b(n_ref)
-                qh, ql, _tc, rank, part = tile_sorted(self._refk, self.k, b)
-                self.P = 1 << b
-                self.Tq = qh.shape[1]
-                # flattened routed slot of each reference ordinal (static)
-                slot_of_ord = (part * self.Tq + rank).astype(np.int64)
-            Logger.info(
-                _CLASS,
-                f"Reference routed: {n_ref} k-mers -> {self.P} x {self.Tq} "
-                f"query tiles ({n_ref / (self.P * self.Tq):.2f} fill)",
-            )
+        dev = self.device
+        with _phase("djoin_setup", dev):
             with stage("djoin_statics"):
                 self._layout.finalize()
-                statics = _Slabs(self._layout.slabs, slot_of_ord,
-                                 self._layout.pos_pad, self._layout.win_pad)
-            with _phase("djoin_static_upload", self.device):
-                self._q_hi = _h2d(as_i32(qh), self.device)
-                self._q_lo = _h2d(as_i32(ql), self.device)
-                self._statics = statics.upload(self.device)
+            with _phase("djoin_static_upload", dev):
+                keys = _h2d(_ref_keys(self._refk), dev)
+                statics = _Slabs(self._layout.slabs, self._layout.pos_pad,
+                                 self._layout.win_pad, dev)
+            with _phase("djoin_route", dev):
+                self._q_hi, self._q_lo, slot_of_ord = self._route(keys)
+                del keys
+            with _phase("djoin_statics", dev):
+                self._statics = statics.route(slot_of_ord)
+                del slot_of_ord
+
+    def _route(self, keys, min_parts=1):
+        """``route_reference`` of the device keys into at least
+        ``min_parts`` partitions; sets P and Tq and counts
+        djoin_route_on_card."""
+        n_ref = keys.shape[0]
+        b = self._pick_b(n_ref)
+        while (1 << b) < min_parts:
+            b += 1
+        qh, ql, slot_of_ord = route_reference(keys, self.k, b)
+        count("djoin_route_on_card", int(keys.device.type == "cuda"))
+        self.P = 1 << b
+        self.Tq = qh.shape[1]
+        Logger.info(
+            _CLASS,
+            f"Reference routed: {n_ref} k-mers -> {self.P} x {self.Tq} "
+            f"query tiles ({n_ref / (self.P * self.Tq):.2f} fill)",
+        )
+        return qh, ql, slot_of_ord
 
     # -- per-sample ------------------------------------------------------
 
@@ -355,51 +385,42 @@ class MeshJoinScorer(DeviceJoinScorer):
         self.d_axis = mesh.shape["data"]
 
     def _finalize(self):
+        """Routes once on the first local slot's device, then moves each
+        table column's tiles to its device and builds each data row's
+        statics on its device, one row at a time."""
         if self._statics is not None:
             return
         mesh = self.mesh
         slots = mesh.local_slots()
+        dev = self.device
         with _phase("djoin_setup", *slots):
-            n_ref = self._refk.shape[0]
-            with stage("djoin_route"):
-                b = self._pick_b(n_ref)
-                while (1 << b) < self.t_axis:
-                    b += 1
-                qh, ql, _tc, rank, part = tile_sorted(self._refk, self.k, b)
-                self.P = 1 << b
-                self.Tq = qh.shape[1]
-                slot_of_ord = (part * self.Tq + rank).astype(np.int64)
-            Logger.info(
-                _CLASS,
-                f"Reference routed: {n_ref} k-mers -> {self.P} x {self.Tq} "
-                f"query tiles across table={self.t_axis}",
-            )
-            pt = self.P // self.t_axis
-            with _phase("djoin_static_upload", *slots):
-                # table column -> its query tiles on the column's device
-                self._q = {
-                    ti: tuple(
-                        _h2d(as_i32(a[ti * pt : (ti + 1) * pt]),
-                             mesh.column_device(ti))
-                        for a in (qh, ql)
-                    )
-                    for ti in mesh.local_columns()
-                }
             with stage("djoin_statics"):
                 self._layout.finalize(n_parts=self.d_axis)
+            with _phase("djoin_static_upload", dev):
+                keys = _h2d(_ref_keys(self._refk), dev)
+            with _phase("djoin_route", *slots):
+                qh, ql, slot_of_ord = self._route(keys, self.t_axis)
+                del keys
+                pt = self.P // self.t_axis
+                # table column -> its query tiles on the column's device
+                self._q = {
+                    ti: tuple(a[ti * pt : (ti + 1) * pt]
+                              .to(mesh.column_device(ti)) for a in (qh, ql))
+                    for ti in mesh.local_columns()
+                }
+                del qh, ql
             slabs = self._layout.slabs
             per = -(-max(len(slabs), 1) // self.d_axis)
-            # data row -> (device, stacked statics of its slabs), each
-            # row built, uploaded and its host arrays freed in turn
+            # data row -> (device, stacked statics of its slabs)
             statics = []
             for di in range(self.d_axis):
-                dev = mesh.row_device(di)
-                with stage("djoin_statics"):
+                row_dev = mesh.row_device(di)
+                with _phase("djoin_static_upload", row_dev):
                     row = _Slabs(slabs[di * per : (di + 1) * per],
-                                 slot_of_ord, self._layout.pos_pad,
-                                 self._layout.win_pad)
-                with _phase("djoin_static_upload", dev):
-                    statics.append((dev, row.upload(dev)))
+                                 self._layout.pos_pad, self._layout.win_pad,
+                                 row_dev)
+                with _phase("djoin_statics", row_dev):
+                    statics.append((row_dev, row.route(slot_of_ord)))
             self._statics = statics
 
     def submit(self, key, ref_keys, db_keys, db_counts):

@@ -106,6 +106,9 @@ _ENTRIES = {
                                      _P]),
     "kcf_hash_probe": ("hashscan", [*[_P] * 4, *[_LL] * 6, _I, _I, _P]),
     "kcf_hash_scan": ("hashscan", [*[_P] * 5, _LL, _LL, _LL, _I, _LL, _P]),
+    "kcf_route_starts": ("route", [_P, _LL, _I, _I, _P, _P, _P]),
+    "kcf_route_tiles": ("route", [_P, _LL, _I, _I, _P, _LL, _P, _P, _P, _P]),
+    "kcf_route_slabs": ("route", [_P, _LL, *[_P] * 4]),
 }
 
 
@@ -128,7 +131,8 @@ def launch(entry, *args):
     stream of the last tensor argument's device (the output). Tensors
     pass as their pointers, None as a null pointer; the stream is
     appended. Each entry point is bound once. Operands are checked by
-    the caller (ops/pjoin.py, ops/gapscan.py, ops/hashscan.py)."""
+    the caller (ops/pjoin.py, ops/gapscan.py, ops/hashscan.py,
+    ops/route.py)."""
     fn = _entry(entry)
     out = [a for a in args if isinstance(a, torch.Tensor)][-1]
     vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]

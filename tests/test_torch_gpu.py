@@ -25,6 +25,7 @@ from kcftools_tpu_torch.ops import gapscan as tgs
 from kcftools_tpu_torch.ops import hashscan as ths
 from kcftools_tpu_torch.ops import lookup as tlk
 from kcftools_tpu_torch.ops import pjoin as tpj
+from kcftools_tpu_torch.ops import route as trt
 
 from .torch_gapscan_cases import (
     LONG_N,
@@ -42,6 +43,7 @@ from .torch_gapscan_cases import (
     slabs_case,
 )
 from . import torch_hash_cases as thc
+from . import torch_route_cases as trc
 from .torch_join_cases import EDGE_SHAPES, hard_join_operands, layout_width
 
 _TOP32 = np.uint64(0xFFFFFFFF00000000)  # k=32 T^16A^16
@@ -895,3 +897,114 @@ def test_hash_scan_two_streams(cuda_device, no_plain_hash):
     for a, got in zip(ins, outs):
         want = no_plain_hash["hash_scan_ref"](*a, k=31, min_count=2)
         assert all(torch.equal(g, want) for g in got)
+
+
+@pytest.fixture
+def no_plain_route(monkeypatch):
+    """A CUDA tensor must never reach the plain routing: the wrappers find
+    both plain versions raising. Returns the real ones by name."""
+    names = ("route_reference_ref", "route_slabs_ref")
+    real = {name: getattr(trt, name) for name in names}
+
+    def boom(*_a, **_k):
+        raise AssertionError("a CUDA tensor reached the plain routing")
+
+    for name in names:
+        monkeypatch.setattr(trt, name, boom)
+    return real
+
+
+def _route_exact(plain, keys, k, b, r_idx, plain_dev):
+    """``route_reference`` and ``route_slabs`` on the card, one launch
+    each, bit-exact against the plain versions run on ``plain_dev``;
+    returns the query tiles."""
+    dev = torch.device("cuda:0")
+    before = (trt.route_reference.launches, trt.route_slabs.launches)
+    got = trt.route_reference(keys.to(dev), k, b)
+    got += trt.route_slabs(r_idx.to(dev), got[2])
+    torch.cuda.synchronize()
+    assert (trt.route_reference.launches, trt.route_slabs.launches) == (
+        before[0] + 1, before[1] + 1)
+    keys, r_idx = keys.to(plain_dev), r_idx.to(plain_dev)
+    want = plain["route_reference_ref"](keys, k, b)
+    want += plain["route_slabs_ref"](r_idx, want[2])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g.to(plain_dev), w)
+    return got[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", trc.CASES)
+@pytest.mark.parametrize("k", trc.KS)
+def test_route_kernels_match_plain(cuda_device, no_plain_route, k, case):
+    """The routing kernels on the edge cases: the top-bit and top-32
+    keys, empty partitions, one partition, one key and none, an all-dead
+    slab; the plain version runs on the CPU."""
+    keys, b, r_idx = trc.route_case(case, k, seed=k)
+    _route_exact(no_plain_route, torch.from_numpy(keys.view(np.int64)), k,
+                 b, torch.from_numpy(r_idx), torch.device("cpu"))
+
+
+@pytest.mark.cuda
+def test_route_kernels_cell_shape(cuda_device, no_plain_route):
+    """The lettuce cell's shape: ~39.9 M canonical-like k = 31 keys in
+    2^16 partitions (Tq 768 there), three slabs of 2^24 positions; the
+    plain version runs on the card too."""
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    n = 40_000_000
+    draws = [torch.randint(0, 1 << 62, (n,), generator=g, device=cuda_device)
+             for _ in range(2)]
+    keys = torch.unique(torch.minimum(*draws))  # sorted
+    del draws
+    S, N = 3, 1 << 24
+    r_idx = torch.randint(0, keys.shape[0], (S, N), generator=g,
+                          device=cuda_device, dtype=torch.int64)
+    dead = torch.rand((S, N), generator=g, device=cuda_device) < 0.05
+    r_idx = torch.where(dead, -1, r_idx).to(torch.int32)
+    r_idx[2, N - 4096 :] = -1  # a slab's padding tail
+    qh = _route_exact(no_plain_route, keys, 31, 16, r_idx, cuda_device)
+    assert qh.shape[0] == 1 << 16 and qh.shape[1] >= keys.shape[0] >> 16
+
+
+@pytest.mark.cuda
+def test_device_join_routes_on_card(cuda_device, monkeypatch, tmp_path):
+    """DeviceJoinScorer on cuda routes with the kernels: one launch of
+    each, djoin_route_on_card 1, the same bytes uploaded, query tiles and
+    slab statics equal to the CPU scorer's (the plain version), and the
+    same per-window statistics."""
+    from kcftools_tpu_torch.utils import stagetimer as st
+
+    monkeypatch.setenv("KCFTOOLS_STAGE_JSON", str(tmp_path / "st.json"))
+    monkeypatch.setenv("KCFTOOLS_DJOIN_SLAB", str(1 << 17))
+    rng = np.random.default_rng(41)
+    k = 31
+    _g, _v, refk, r_idx, db, dbc = _genome_case(rng, 400_000, k)
+    starts, ends = tiling_windows(r_idx.shape[0] + k - 1, 5000, k)
+    scorers, out, snaps = {}, {}, {}
+    for dev in (torch.device("cpu"), cuda_device):
+        sc = DeviceJoinScorer(_Ref(refk), k, dev)
+        sc.add_chrom("c", r_idx, starts, ends)
+        before = (trt.route_reference.launches, trt.route_slabs.launches)
+        st.reset()
+        sc.submit(0, refk, db, dbc)
+        snaps[dev.type] = st.snapshot()
+        launched = (trt.route_reference.launches - before[0],
+                    trt.route_slabs.launches - before[1])
+        assert launched == ((1, 1) if dev.type == "cuda" else (0, 0))
+        out[dev.type] = sc.collect(0)["c"]
+        scorers[dev.type] = sc
+    st.reset()
+    assert snaps["cpu"]["djoin_route_on_card"] == 0
+    assert snaps["cuda"]["djoin_route_on_card"] == 1
+    assert snaps["cuda"]["djoin_h2d_bytes"] == snaps["cpu"]["djoin_h2d_bytes"]
+    cpu, gpu = scorers["cpu"], scorers["cuda"]
+    assert len(gpu._statics) == len(cpu._statics) > 1
+    for a, b in ((cpu._q_hi, gpu._q_hi), (cpu._q_lo, gpu._q_lo),
+                 (cpu._statics.slot_maps, gpu._statics.slot_maps),
+                 (cpu._statics.valid_bits, gpu._statics.valid_bits),
+                 (cpu._statics.w_start, gpu._statics.w_start),
+                 (cpu._statics.w_hi, gpu._statics.w_hi)):
+        assert torch.equal(a, b.cpu())
+    for f, want in out["cpu"].items():
+        np.testing.assert_array_equal(out["cuda"][f], want, err_msg=f)
+    assert out["cuda"]["observed"].sum() > 0

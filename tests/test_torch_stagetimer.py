@@ -174,7 +174,9 @@ class _Shapes:
         sc = self.scorer
         S, pos_pad = sc._statics.slot_maps.shape
         win_pad = sc._statics.w_start.shape[1]
-        statics = (2 * sc.P * sc.Tq * 4 + S * pos_pad * 4 + S * pos_pad // 8
+        # the keys, each slab's r_idx and window bounds; the tiles, slot
+        # maps and valid bitmaps are built on the device
+        statics = (sc._refk.shape[0] * 8 + S * pos_pad * 4
                    + 2 * S * win_pad * 8)
         sample = 0
         for nbytes, Tt, packed in self.tiles:
@@ -226,6 +228,7 @@ def test_get_variations_spans_and_counters(tmp_path, rng, monkeypatch):
             assert name in stages, name
         statics, sample = shapes.h2d_bytes()
         assert stages["djoin_h2d_bytes"] == statics + sample
+        assert stages["djoin_route_on_card"] == 0  # a CPU device
         kids = sum(stages[n] for n in MAIN_THREAD)
         assert stages["getVariations.self"] == pytest.approx(
             stages["getVariations"] - kids, abs=2e-3)
@@ -259,19 +262,25 @@ def test_hash_engine_spans(tmp_path, rng, monkeypatch):
 
 
 def test_slabs_upload_counts_bytes(monkeypatch):
-    """``_Slabs`` builds on the host and ``upload`` counts its bytes."""
+    """``_Slabs`` uploads each slab's r_idx and window bounds, counting
+    their bytes, and ``route`` builds the slot maps and valid bitmaps on
+    the device, which copies nothing more."""
     monkeypatch.setenv("KCFTOOLS_STAGE_JSON", os.devnull)
     st.reset()
-    r_idx = np.full(16, -1, np.int64)
+    r_idx = np.full(32, -1, np.int32)
     r_idx[:4] = [0, -1, 2, 1]
     slab = {"r_idx": r_idx,
-            "w_start": np.zeros(8, np.int64), "w_hi": np.ones(8, np.int64)}
-    s = tdj._Slabs([slab], np.array([5, 6, 7], np.int64), 16, 8)
-    assert isinstance(s.slot_maps, np.ndarray) and len(s) == 1
+            "w_start": np.zeros(8, np.int32), "w_hi": np.ones(8, np.int32)}
+    s = tdj._Slabs([slab], 32, 8, torch.device("cpu"))
+    assert len(s) == 1 and s.slot_maps is None
+    assert s.w_hi.dtype == torch.int64 and s.w_hi.tolist() == [[1] * 8]
+    assert st.snapshot() == {"djoin_h2d_bytes": 32 * 4 + 2 * 8 * 8}
+    s.route(torch.tensor([5, 6, 7], dtype=torch.int32))
+    assert s.r_idx is None
     assert s.slot_maps[0, :4].tolist() == [5, 0, 7, 6]
-    s.upload(torch.device("cpu"))
-    assert isinstance(s.w_hi, torch.Tensor)
-    assert st.snapshot() == {"djoin_h2d_bytes": 16 * 4 + 2 + 2 * 8 * 8}
+    assert not s.slot_maps[0, 4:].any()
+    assert s.valid_bits.tolist() == [[0b1101, 0, 0, 0]]
+    assert st.snapshot() == {"djoin_h2d_bytes": 32 * 4 + 2 * 8 * 8}
     st.reset()
 
 
@@ -338,30 +347,31 @@ def test_mesh_statics_row_by_row(monkeypatch):
     ref = Ref()
     ref.kmers = refk
     order = []
-    init, upload = tdj._Slabs.__init__, tdj._Slabs.upload
+    init, route = tdj._Slabs.__init__, tdj._Slabs.route
 
     def rec_init(self, *a):
-        order.append("build")
+        order.append("upload")
         init(self, *a)
 
-    def rec_upload(self, dev):
-        order.append("upload")
-        return upload(self, dev)
+    def rec_route(self, slot_of_ord):
+        order.append("route")
+        return route(self, slot_of_ord)
 
     monkeypatch.setattr(tdj._Slabs, "__init__", rec_init)
-    monkeypatch.setattr(tdj._Slabs, "upload", rec_upload)
+    monkeypatch.setattr(tdj._Slabs, "route", rec_route)
     st.reset()
     msc = tdj.MeshJoinScorer(ref, k, make_mesh(2, 4))
     msc.add_chrom("c", r_idx, *tiling_windows(length, 2000, k))
     msc._finalize()
-    assert order == ["build", "upload"] * 2
+    assert order == ["upload", "route"] * 2
     snap = st.snapshot()
     for name in ("djoin_setup", "djoin_route", "djoin_statics",
                  "djoin_static_upload"):
         assert name in snap, name
-    want = sum(q.nbytes for pair in msc._q.values() for q in pair)
+    assert snap["djoin_route_on_card"] == 0  # routed once, on the CPU
+    # the keys once, then each row's r_idx and window bounds
+    want = refk.nbytes
     want += sum(t.nbytes for _dev, row in msc._statics
-                for t in (row.slot_maps, row.valid_bits, row.w_start,
-                          row.w_hi))
+                for t in (row.slot_maps, row.w_start, row.w_hi))
     assert snap["djoin_h2d_bytes"] == want
     st.reset()
