@@ -22,9 +22,9 @@ documented envelope is KMC signature length 9 and k around 31;
 docs/general/limitations.md).
 """
 
+import mmap
 import os
 import struct
-import zipfile
 
 import numpy as np
 
@@ -428,8 +428,41 @@ def choose_lut_prefix_length(k: int) -> int:
     return k  # degenerate tiny k
 
 
+# The sorted sidecar: a fixed little-endian header, then each key limb
+# (uint64; one for k <= 32, hi and lo for 33..64) and the uint32 counts,
+# each at a 64-byte-aligned offset, so a load maps the file and views
+# its arrays in place. Header: magic, format version, k, limbs, 0, n,
+# the .kmc_pre / .kmc_suf sizes (a content fingerprint), the byte
+# offsets of the first limb, the second (0 with one) and the counts,
+# and the file's total length.
+_SORTED_MAGIC = b"KCFSORT\0"
+_SORTED_VERSION = 1
+_SORTED_HEAD = struct.Struct("<8s4I7Q")
+_SORTED_ALIGN = 64
+
+
 def sorted_cache_path(db_prefix: str, k: int) -> str:
-    return f"{db_prefix}.kcfsorted.k{k}.npz"
+    return f"{db_prefix}.kcfsorted.k{k}.raw"
+
+
+def _sorted_layout(n: int, limbs: int):
+    """(first limb, second limb or 0, counts) byte offsets and the total
+    length of a sidecar of ``n`` records."""
+    def align(x):
+        return -(-x // _SORTED_ALIGN) * _SORTED_ALIGN
+
+    offs = [align(_SORTED_HEAD.size)]
+    for _ in range(limbs):
+        offs.append(align(offs[-1] + 8 * n))
+    counts = offs.pop()
+    if limbs == 1:
+        offs.append(0)
+    return (*offs, counts), counts + 4 * n
+
+
+def _kmc_sizes(db_prefix: str):
+    return (os.path.getsize(db_prefix + ".kmc_pre"),
+            os.path.getsize(db_prefix + ".kmc_suf"))
 
 
 def load_sorted_cache(db_prefix: str, k: int):
@@ -437,59 +470,66 @@ def load_sorted_cache(db_prefix: str, k: int):
     same caching pattern as .faidx / .kcfidx: the reference regenerates
     its index sidecars on staleness, FastaIndex.java:31-36). Returns
     (keys, counts) - keys uint64 for k <= 32, an (hi, lo) pair for
-    33..64 - or None when absent/stale. The cache spares every later
-    run the KMC-record decode + radix sort, the dominant per-sample
-    ingest cost. A hit adds 0 to the stage timer's ``sidecar_built``."""
+    33..64 - as read-only views of a memory map of the file, or None
+    when absent, stale, truncated or foreign. The cache spares every
+    later run the KMC-record decode + radix sort, the dominant
+    per-sample ingest cost. A hit adds 0 to the stage timer's
+    ``sidecar_built`` and the bytes it served to ``sidecar_bytes``; a
+    miss adds 0 to ``sidecar_bytes``."""
     path = sorted_cache_path(db_prefix, k)
+    limbs = 1 if k <= 32 else 2
     try:
-        m = os.path.getmtime(path)
-        # '<=' (not '<'): a DB regenerated within the filesystem's
-        # timestamp granularity of the sidecar write must re-sort - the
-        # safe direction. The stored .kmc_pre/.kmc_suf sizes are a cheap
-        # content fingerprint for the same window.
-        if m <= os.path.getmtime(db_prefix + ".kmc_pre") or m <= (
-            os.path.getmtime(db_prefix + ".kmc_suf")
-        ):
-            return None
-        with np.load(path) as z:
-            if int(z["format_version"][0]) != 1:
-                return None
-            if "src_sizes" in z:
-                sizes = (
-                    os.path.getsize(db_prefix + ".kmc_pre"),
-                    os.path.getsize(db_prefix + ".kmc_suf"),
-                )
-                if tuple(z["src_sizes"]) != sizes:
-                    return None
-            counts = z["counts"]
-            keys = ((z["keys_hi"], z["keys_lo"]) if "keys_hi" in z
-                    else z["keys"])
-        count("sidecar_built", 0)
-        return keys, counts
-    except (OSError, KeyError, ValueError, zipfile.BadZipFile):
+        with open(path, "rb") as fh:
+            st = os.fstat(fh.fileno())
+            # '<=' (not '<'): a DB regenerated within the filesystem's
+            # timestamp granularity of the sidecar write must re-sort -
+            # the safe direction. The stored .kmc_pre/.kmc_suf sizes are
+            # a cheap content fingerprint for the same window.
+            if st.st_mtime <= os.path.getmtime(db_prefix + ".kmc_pre") or (
+                st.st_mtime <= os.path.getmtime(db_prefix + ".kmc_suf")
+            ):
+                raise ValueError("stale")
+            (magic, version, hk, hlimbs, _, n, pre, suf,
+             *offs, total) = _SORTED_HEAD.unpack(
+                fh.read(_SORTED_HEAD.size))
+            if (magic != _SORTED_MAGIC or version != _SORTED_VERSION
+                    or (hk, hlimbs) != (k, limbs)
+                    or (pre, suf) != _kmc_sizes(db_prefix)
+                    or total != st.st_size
+                    or (tuple(offs), total) != _sorted_layout(n, limbs)):
+                raise ValueError("not this database's sidecar")
+            mm = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
+    except (OSError, ValueError, struct.error):
+        count("sidecar_bytes", 0)
         return None
+    keys = [np.frombuffer(mm, "<u8", n, off) for off in offs[:limbs]]
+    counts = np.frombuffer(mm, "<u4", n, offs[2])
+    count("sidecar_built", 0)
+    count("sidecar_bytes", (8 * limbs + 4) * n)
+    return (tuple(keys) if limbs == 2 else keys[0]), counts
 
 
 def save_sorted_cache(db_prefix: str, k: int, keys, counts) -> None:
     """Best-effort atomic write of the sorted-key sidecar; a written one
     adds 1 to the stage timer's ``sidecar_built``."""
     path = sorted_cache_path(db_prefix, k)
-    payload = {"format_version": np.array([1]),
-               "counts": np.asarray(counts, np.uint32)}
+    arrays = [np.ascontiguousarray(a, "<u8")
+              for a in (keys if isinstance(keys, tuple) else (keys,))]
+    limbs = len(arrays)
+    arrays.append(np.ascontiguousarray(counts, "<u4"))
+    n = arrays[-1].shape[0]
+    offs, total = _sorted_layout(n, limbs)
+    tmp = f"{path}.{os.getpid()}.tmp"
     try:
-        payload["src_sizes"] = np.array(
-            [os.path.getsize(db_prefix + ".kmc_pre"),
-             os.path.getsize(db_prefix + ".kmc_suf")], np.int64)
-    except OSError:
-        pass
-    if isinstance(keys, tuple):
-        payload["keys_hi"] = keys[0]
-        payload["keys_lo"] = keys[1]
-    else:
-        payload["keys"] = keys
-    try:
-        tmp = f"{path}.{os.getpid()}.tmp.npz"
-        np.savez(tmp, **payload)
+        head = _SORTED_HEAD.pack(_SORTED_MAGIC, _SORTED_VERSION, k, limbs,
+                                 0, n, *_kmc_sizes(db_prefix), *offs,
+                                 total)
+        with open(tmp, "wb") as fh:
+            fh.write(head)
+            for off, a in zip((*offs[:limbs], offs[2]), arrays):
+                fh.seek(off)
+                fh.write(a)
+            fh.truncate(total)  # with n = 0, pads the header out
         os.replace(tmp, path)
         count("sidecar_built", 1)
     except OSError as e:

@@ -219,6 +219,7 @@ def test_get_variations_spans_and_counters(tmp_path, rng, monkeypatch):
     cold, warm = runs["cold"][0], runs["warm"][0]
     for key in ("refindex_built", "plan_built", "sidecar_built"):
         assert (cold[key], warm[key]) == (1, 0), key
+    assert cold["sidecar_bytes"] == 0 < warm["sidecar_bytes"]
     assert "refindex_build" in cold and "refindex_build" not in warm
     for stages, shapes, _ in (runs["cold"], runs["warm"]):
         for name in MAIN_THREAD + ("getVariations", "getVariations.self",
@@ -288,7 +289,9 @@ def test_slabs_upload_counts_bytes(monkeypatch):
 def test_sidecar_built_counts_written_sidecars(tmp_path, monkeypatch,
                                                writable):
     """``sidecar_built`` adds 1 where ``save_sorted_cache`` wrote the
-    sidecar, nothing where the write failed, and 0 for a load."""
+    ``.raw`` sidecar, nothing where the write failed, and 0 for a load;
+    ``sidecar_bytes`` adds the 12 bytes a record that a hit served, and
+    0 on a miss."""
     from kcftools_tpu_torch.io import kmc
 
     prefix = str(tmp_path / "db")
@@ -307,17 +310,21 @@ def test_sidecar_built_counts_written_sidecars(tmp_path, monkeypatch,
         monkeypatch.setattr(kmc.os, "replace", refuse)
     kmc.save_sorted_cache(prefix, 21, keys, counts)
     assert st.snapshot() == ({"sidecar_built": 1} if writable else {})
+    assert os.path.exists(prefix + ".kcfsorted.k21.raw") == writable
+    assert not (tmp_path / "db.kcfsorted.k21.npz").exists()
     got = kmc.load_sorted_cache(prefix, 21)
     if writable:
         np.testing.assert_array_equal(got[0], keys)
-        assert st.snapshot() == {"sidecar_built": 1}
+        assert st.snapshot() == {"sidecar_built": 1,
+                                 "sidecar_bytes": 12 * 5}
     else:
         assert got is None
-        assert st.snapshot() == {}
+        assert st.snapshot() == {"sidecar_bytes": 0}
     st.reset()
     if writable:
         kmc.load_sorted_cache(prefix, 21)
-        assert st.snapshot() == {"sidecar_built": 0}
+        assert st.snapshot() == {"sidecar_built": 0,
+                                 "sidecar_bytes": 12 * 5}
     st.reset()
 
 
