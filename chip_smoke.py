@@ -1285,10 +1285,10 @@ def check_same(got_paths, want_paths, n_rows, what):
 def djoin_layout(chrom_len):
     """(slabs, positions, windows) of the device join's slab layout of
     the slice's tiling windows."""
-    from kcftools_tpu_torch.engine.device_prefix import _Layout
+    from kcftools_tpu_torch.engine.slabs import Layout
     from kcftools_tpu_torch.engine.windows import tiling_windows
 
-    lay = _Layout(K, DJOIN_SLAB)
+    lay = Layout(K, DJOIN_SLAB)
     for name, L in chrom_len.items():
         lay.add_chrom(name, np.zeros(L - K + 1, np.int32),
                       *tiling_windows(L, WINDOW, K))

@@ -22,8 +22,9 @@ Layout (mirrors kcftools_tpu):
   utils/                logging, stage timer, Java formatting (copies)
   engine/encode*, windows, hashtable, prefix_scan, refindex, hostscan
                         the numpy engine modules (copies)
-  torchinit.py          device selection (cuda:0 unless told otherwise)
-                        and the mesh slots (resolve_devices)
+  torchinit.py          device selection (cuda:0 unless told otherwise),
+                        the mesh slots (resolve_devices) and ``phase``,
+                        the stage that waits for its devices
   ops/pjoin.py          partitioned join: host tiling + kernel wrapper
   ops/_kernels.py       nvcc build and ctypes binding of csrc/*.cu
   ops/kmerize.py        canonical (hi, lo) k-mers of padded windows
@@ -33,8 +34,9 @@ Layout (mirrors kcftools_tpu):
                         wrappers and plain versions
   ops/hashscan.py       the hash engine's probe and scan kernels'
                         wrappers and plain versions
-  engine/device_prefix  the gap-run prefix scan, slab layout and
-                        DevicePrefixScorer (dprefix)
+  engine/slabs          the window-aligned slab layout both device
+                        engines scan (Layout)
+  engine/device_prefix  DevicePrefixScorer (dprefix)
   engine/device_join    DeviceJoinScorer, MeshJoinScorer
   engine/pipeline       WindowScorer (the on-chip hash engine)
   parallel/mesh         the (data, table) mesh, init_distributed,

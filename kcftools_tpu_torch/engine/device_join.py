@@ -56,22 +56,24 @@ import torch
 
 from ..native import get_lib
 from ..utils.logger import Logger
-from .encode import split_hi_lo
 from ..ops.gapscan import slabs_scan_join
 from ..ops.pjoin import (
-    _round_up,
     as_i32,
+    pack_planar,
     pjoin_join,
     quantile_partition_ids,
+    round_up,
+    tile_sorted,
 )
 from ..ops.route import route_reference, route_slabs
 from ..parallel.mesh import all_gather_columns
+from ..torchinit import phase
 from ..utils.stagetimer import count, stage
-from .device_prefix import _FIELDS, _Layout, _phase
+from .slabs import FIELDS, Layout
 
 _CLASS = "DeviceJoin"
 
-_JFIELDS = _FIELDS + ("count_sum",)
+_JFIELDS = FIELDS + ("count_sum",)
 
 
 class _Slabs:
@@ -153,7 +155,7 @@ class DeviceJoinScorer:
                 os.environ.get("KCFTOOLS_DPREFIX_SLAB", str(1 << 24)),
             )
         )
-        self._layout = _Layout(self.k, slab)
+        self._layout = Layout(self.k, slab)
         self._refk = refidx.kmers  # sorted unique uint64
         self._tile_target = int(tile_target)
         self._statics = None
@@ -181,17 +183,17 @@ class DeviceJoinScorer:
         if self._statics is not None:
             return
         dev = self.device
-        with _phase("djoin_setup", dev):
+        with phase("djoin_setup", dev):
             with stage("djoin_statics"):
                 self._layout.finalize()
-            with _phase("djoin_static_upload", dev):
+            with phase("djoin_static_upload", dev):
                 keys = _h2d(_ref_keys(self._refk), dev)
                 statics = _Slabs(self._layout.slabs, self._layout.pos_pad,
                                  self._layout.win_pad, dev)
-            with _phase("djoin_route", dev):
+            with phase("djoin_route", dev):
                 self._q_hi, self._q_lo, slot_of_ord = self._route(keys)
                 del keys
-            with _phase("djoin_statics", dev):
+            with phase("djoin_statics", dev):
                 self._statics = statics.route(slot_of_ord)
                 del slot_of_ord
 
@@ -219,9 +221,10 @@ class DeviceJoinScorer:
     def _pack_tiles(self, db_keys, db_counts):
         """One flat uint32 buffer [hi | lo | counts] in the sample's
         sticky (P, Tt) tiling. Counts <= 255 byte-pack 4 per word in
-        the planar layout, by the native packer where the library is
-        built (its partition function clamps to P-1, as
-        ``quantile_partition_ids`` does), else by numpy."""
+        the planar layout. The native packer does it where the library
+        is built (its partition function clamps to P-1, as
+        ``quantile_partition_ids`` does), else ``tile_sorted`` and
+        ``pack_planar``."""
         db_keys = np.ascontiguousarray(db_keys, np.uint64)
         n = db_keys.shape[0]
         b = self.P.bit_length() - 1
@@ -236,48 +239,32 @@ class DeviceJoinScorer:
                 per.ctypes.data_as(i64p),
             )
         else:
-            part = quantile_partition_ids(db_keys, b, self.k)
-            per = np.bincount(part, minlength=self.P).astype(np.int64)
+            per = np.bincount(quantile_partition_ids(db_keys, b, self.k),
+                              minlength=self.P)
         need = int(per.max()) if n else 1
         if self._sample_tile is None or need > self._sample_tile:
             # sticky tile with headroom so later samples of similar size
             # keep one shape
-            self._sample_tile = _round_up(need + 64, 128)
+            self._sample_tile = round_up(need + 64, 128)
         Tt = self._sample_tile
         packed = bool(db_counts.max(initial=0) <= 0xFF)
+        if lib is None:
+            th, tl, tc, _, _ = tile_sorted(db_keys, self.k, b, tile=Tt,
+                                           counts=db_counts)
+            planes = (th, tl, pack_planar(tc) if packed else tc)
+            return np.concatenate([a.ravel() for a in planes]), Tt, packed
         nt = self.P * Tt
         words = nt // 4 if packed else nt
         buf = np.zeros(2 * nt + words, np.uint32)
-        if lib is not None:
-            lib.kcf_pjoin_pack(
-                db_keys.ctypes.data_as(u64p),
-                db_counts.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-                ctypes.c_int64(n), ctypes.c_int(self.k),
-                ctypes.c_int(b), ctypes.c_int64(Tt),
-                ctypes.c_int(int(packed)),
-                per.ctypes.data_as(i64p),
-                buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-            )
-        else:
-            starts = np.concatenate(([0], np.cumsum(per)))
-            rank = np.arange(n) - starts[part]
-            hi, lo = split_hi_lo(db_keys, self.k)
-            slot = part * Tt + rank
-            buf[slot] = hi
-            buf[nt + slot] = lo
-            if packed:
-                # planar layout: byte b of word (p, j) = count of slot
-                # p*Tt + b*(Tt/4) + j (ops/pjoin.unpack_planar)
-                cnt8 = np.zeros(nt, np.uint8)
-                cnt8[slot] = db_counts
-                c = cnt8.reshape(self.P, 4, Tt // 4).astype(np.uint32)
-                buf[2 * nt :] = (
-                    c[:, 0] | (c[:, 1] << np.uint32(8))
-                    | (c[:, 2] << np.uint32(16))
-                    | (c[:, 3] << np.uint32(24))
-                ).ravel()
-            else:
-                buf[2 * nt + slot] = db_counts
+        lib.kcf_pjoin_pack(
+            db_keys.ctypes.data_as(u64p),
+            db_counts.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            ctypes.c_int64(n), ctypes.c_int(self.k),
+            ctypes.c_int(b), ctypes.c_int64(Tt),
+            ctypes.c_int(int(packed)),
+            per.ctypes.data_as(i64p),
+            buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        )
         return buf, Tt, packed
 
     def submit(self, key, ref_keys, db_keys, db_counts):
@@ -286,12 +273,12 @@ class DeviceJoinScorer:
         dprefix engine (the reference keys were given at construction)."""
         self._finalize()
         dev = self.device
-        with _phase("djoin_pack", dev):
+        with phase("djoin_pack", dev):
             db_counts = np.ascontiguousarray(db_counts, np.uint32)
             buf, Tt, packed = self._pack_tiles(db_keys, db_counts)
-        with _phase("djoin_upload", dev):
+        with phase("djoin_upload", dev):
             tiles = _h2d(as_i32(buf), dev)  # ONE host-to-device copy
-        with _phase("djoin_join", dev):
+        with phase("djoin_join", dev):
             nt = self.P * Tt
             th = tiles[:nt].view(self.P, Tt)
             tl = tiles[nt : 2 * nt].view(self.P, Tt)
@@ -300,7 +287,7 @@ class DeviceJoinScorer:
                 self._q_hi, self._q_lo, th, tl, tc, packed=packed
             ).view(-1)
             del tiles, th, tl, tc
-        with _phase("djoin_scan", dev):
+        with phase("djoin_scan", dev):
             self._handles[key] = self._scan_slabs(flat, self._statics)
 
     def _scan_slabs(self, flat, statics):
@@ -326,7 +313,7 @@ class DeviceJoinScorer:
     def collect(self, key=None):
         if key in self._results:
             return self._results[key]
-        with _phase("djoin_fetch", self.device):
+        with phase("djoin_fetch", self.device):
             arr = self._fetch(self._handles.pop(key))  # (S, 6, win_pad)
         out = {
             name: {f: np.zeros(nw, np.int64) for f in _JFIELDS}
@@ -393,12 +380,12 @@ class MeshJoinScorer(DeviceJoinScorer):
         mesh = self.mesh
         slots = mesh.local_slots()
         dev = self.device
-        with _phase("djoin_setup", *slots):
+        with phase("djoin_setup", *slots):
             with stage("djoin_statics"):
                 self._layout.finalize(n_parts=self.d_axis)
-            with _phase("djoin_static_upload", dev):
+            with phase("djoin_static_upload", dev):
                 keys = _h2d(_ref_keys(self._refk), dev)
-            with _phase("djoin_route", *slots):
+            with phase("djoin_route", *slots):
                 qh, ql, slot_of_ord = self._route(keys, self.t_axis)
                 del keys
                 pt = self.P // self.t_axis
@@ -415,18 +402,18 @@ class MeshJoinScorer(DeviceJoinScorer):
             statics = []
             for di in range(self.d_axis):
                 row_dev = mesh.row_device(di)
-                with _phase("djoin_static_upload", row_dev):
+                with phase("djoin_static_upload", row_dev):
                     row = _Slabs(slabs[di * per : (di + 1) * per],
                                  self._layout.pos_pad, self._layout.win_pad,
                                  row_dev)
-                with _phase("djoin_statics", row_dev):
+                with phase("djoin_statics", row_dev):
                     statics.append((row_dev, row.route(slot_of_ord)))
             self._statics = statics
 
     def submit(self, key, ref_keys, db_keys, db_counts):
         self._finalize()
         slots = self.mesh.local_slots()
-        with _phase("djoin_pack"):
+        with phase("djoin_pack"):
             db_counts = np.ascontiguousarray(db_counts, np.uint32)
             buf, Tt, packed = self._pack_tiles(db_keys, db_counts)
         nt = self.P * Tt
@@ -436,13 +423,13 @@ class MeshJoinScorer(DeviceJoinScorer):
             buf[nt : 2 * nt].reshape(self.P, Tt),
             buf[2 * nt :].reshape(self.P, -1),
         )
-        with _phase("djoin_upload", *slots):
+        with phase("djoin_upload", *slots):
             tiles = {
                 ti: [_h2d(as_i32(a[ti * pt : (ti + 1) * pt]), q[0].device)
                      for a in planes]
                 for ti, q in self._q.items()
             }
-        with _phase("djoin_join", *slots):
+        with phase("djoin_join", *slots):
             routed = all_gather_columns(
                 {
                     ti: pjoin_join(*self._q[ti], *tiles[ti], packed=packed)
@@ -451,7 +438,7 @@ class MeshJoinScorer(DeviceJoinScorer):
                 self.t_axis,
             )
             del tiles
-        with _phase("djoin_scan", *slots):
+        with phase("djoin_scan", *slots):
             self._handles[key] = [
                 self._scan_slabs(
                     torch.cat([r.to(dev) for r in routed]).view(-1), statics

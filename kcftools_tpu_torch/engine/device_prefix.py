@@ -13,7 +13,7 @@ the compact absent-run stream of it (native ``kcf_bits_to_runs``; see
 uploaded as one (S, ...) uint8 tensor per slab and scored by one call of
 ``_score_runs`` (every sample fit the sticky run budget) or
 ``_score_batch`` (the bitmaps). The chromosomes are cut into
-window-aligned slabs (``_Layout``), so no window straddles a slab.
+window-aligned slabs (``slabs.Layout``), so no window straddles a slab.
 
 Every row of a group goes through one ``runs_scan`` (the run program)
 or ``rows_scan`` (the bitmap program) per slab and pool slot: on the
@@ -52,24 +52,10 @@ from ..native import (
     ordpack,
     pack_posbits,
 )
-# _pack_bits and _runs_presence stay importable from here
-from ..ops.gapscan import (  # noqa: F401
-    _pack_bits,
-    _runs_presence,
-    rows_scan,
-    runs_scan,
-)
+from ..ops.gapscan import rows_scan, runs_scan
 from ..utils import stagetimer
-from ..torchinit import Slot, process_index, sync_devices
-
-_POS_BUCKET = 1 << 20  # slab position padding granularity
-_WIN_BUCKET = 1 << 10  # slab window padding granularity
-_SEG_ALIGN = 64  # segments start on bit-word boundaries
-_SCAN_BLK = 512  # small-slab padding granule
-
-
-def _round_up(n, m):
-    return ((n + m - 1) // m) * m
+from ..torchinit import Slot, phase, process_index
+from .slabs import FIELDS, Layout
 
 
 def _pad_u8(arr, cap):
@@ -79,23 +65,6 @@ def _pad_u8(arr, cap):
     out = np.zeros(cap, np.uint8)
     out[: arr.shape[0]] = arr
     return out
-
-
-class _phase(stagetimer.stage):
-    """A stagetimer stage that first waits for the queued work of every
-    device it names (torch devices or mesh slots), so that device time
-    lands in the phase that queued it."""
-
-    __slots__ = ("devices",)
-
-    def __init__(self, name, *devices):
-        super().__init__(name)
-        self.devices = devices
-
-    def __exit__(self, *exc):
-        if self.on:
-            sync_devices(self.devices)
-        return super().__exit__(*exc)
 
 
 def _count_cuda_call(fn, t):
@@ -124,147 +93,6 @@ def _score_runs(dl, valid_bits, w_start, w_hi, *, k: int):
 
 _score_batch.cuda_calls = 0
 _score_runs.cuda_calls = 0
-
-
-class _Layout:
-    """Chromosomes -> window-aligned segments -> fixed-shape slabs."""
-
-    def __init__(self, k, slab_pos):
-        self.k = int(k)
-        self.slab_pos = int(slab_pos)
-        self._chroms = []  # (name, r_idx, w_start, w_hi)
-        self.slabs = None
-
-    def add_chrom(self, name, r_idx, starts, ends):
-        w_start = np.ascontiguousarray(starts, np.int32)
-        w_hi = (np.asarray(ends, np.int64) - self.k).astype(np.int32)
-        self.add_chrom_kcoords(name, r_idx, w_start, w_hi)
-
-    def add_chrom_kcoords(self, name, r_idx, w_start, w_hi):
-        """Windows already in k-mer start coordinates (feature mode).
-        Windows shorter than k (w_hi < w_start) clamp to the empty
-        range [s, s-1]: zero totals, zero stats."""
-        w_start = np.ascontiguousarray(w_start, np.int32)
-        w_hi = np.maximum(
-            np.ascontiguousarray(w_hi, np.int32), w_start - 1
-        )
-        self._chroms.append(
-            (name, np.ascontiguousarray(r_idx, np.int32), w_start, w_hi)
-        )
-
-    def _segments(self):
-        """Split each chromosome's window list into runs whose position
-        span fits one slab. Window k-mer ranges never straddle a
-        segment, so per-window stats are exact under any split."""
-        segs = []
-        for name, r_idx, w_start, w_hi in self._chroms:
-            n_win = len(w_start)
-            i = 0
-            while i < n_win:
-                base = int(w_start[i])
-                j = i
-                endp = int(w_hi[i])
-                while j + 1 < n_win:
-                    ne = max(endp, int(w_hi[j + 1]))
-                    nb = min(base, int(w_start[j + 1]))
-                    if ne - nb + 1 > self.slab_pos:
-                        break
-                    j += 1
-                    endp = ne
-                    base = nb
-                endp = min(endp, r_idx.shape[0] - 1)
-                if endp < base:
-                    endp = base
-                segs.append(
-                    {
-                        "chrom": name,
-                        "r_idx": r_idx[base : endp + 1],
-                        "w_start": w_start[i : j + 1] - base,
-                        "w_hi": np.minimum(w_hi[i : j + 1], endp) - base,
-                        "c_off": i,
-                    }
-                )
-                i = j + 1
-        return segs
-
-    def finalize(self, n_parts: int = 1):
-        if self.slabs is not None:
-            return
-        if n_parts > 1:
-            # shard the genome across devices: aim for >= n_parts slabs
-            # (window-aligned, so per-window stats stay exact)
-            total = sum(c[1].shape[0] for c in self._chroms)
-            self.slab_pos = max(
-                _SEG_ALIGN, min(self.slab_pos, -(-total // n_parts))
-            )
-        segs = self._segments()
-        # first-fit in order into slabs of <= slab_pos positions
-        groups = []
-        cur, cur_pos = [], 0
-        for seg in segs:
-            seg_len = _round_up(seg["r_idx"].shape[0], _SEG_ALIGN)
-            if cur and cur_pos + seg_len > self.slab_pos:
-                groups.append(cur)
-                cur, cur_pos = [], 0
-            cur.append(seg)
-            cur_pos += seg_len
-        if cur:
-            groups.append(cur)
-
-        if not groups:
-            self.pos_pad = _SEG_ALIGN
-            self.win_pad = 64
-            self.slabs = []
-            self.chrom_n_win = {
-                name: len(ws) for name, _r, ws, _h in self._chroms
-            }
-            return
-        # shared padded shapes for every slab; big layouts bucket
-        # coarsely, small ones pad only to the bit-word grid
-        maxp = max(
-            sum(_round_up(s["r_idx"].shape[0], _SEG_ALIGN) for s in g)
-            for g in groups
-        )
-        maxw = max(sum(len(s["w_start"]) for s in g) for g in groups)
-        pos_pad = _round_up(
-            maxp, _POS_BUCKET if maxp >= _POS_BUCKET else _SCAN_BLK
-        )
-        win_pad = _round_up(maxw, _WIN_BUCKET if maxw >= _WIN_BUCKET else 64)
-        self.pos_pad = pos_pad
-        self.win_pad = win_pad
-
-        self.slabs = []
-        for g in groups:
-            r_idx = np.full(pos_pad, -1, np.int32)
-            w_start = np.zeros(win_pad, np.int32)
-            w_hi = np.zeros(win_pad, np.int32)
-            wins = []  # (chrom, chrom_win_off, slab_win_off, count)
-            p_off = 0
-            w_off = 0
-            for seg in g:
-                sl = seg["r_idx"].shape[0]
-                nw = len(seg["w_start"])
-                r_idx[p_off : p_off + sl] = seg["r_idx"]
-                w_start[w_off : w_off + nw] = seg["w_start"] + p_off
-                w_hi[w_off : w_off + nw] = seg["w_hi"] + p_off
-                wins.append((seg["chrom"], seg["c_off"], w_off, nw))
-                p_off += _round_up(sl, _SEG_ALIGN)
-                w_off += nw
-            self.slabs.append(
-                {
-                    "r_idx": r_idx,
-                    "w_start": w_start,
-                    "w_hi": w_hi,
-                    "n_win": w_off,
-                    "wins": wins,
-                }
-            )
-        self.chrom_n_win = {
-            name: len(ws) for name, _r, ws, _h in self._chroms
-        }
-
-
-_FIELDS = ("observed", "variations", "inner", "left", "right")
 
 
 class DevicePrefixScorer:
@@ -300,7 +128,7 @@ class DevicePrefixScorer:
         self.batch = max(1, int(batch))
         self.uplink = os.environ.get("KCFTOOLS_DPREFIX_UPLINK", "auto")
         slab = int(os.environ.get("KCFTOOLS_DPREFIX_SLAB", str(1 << 26)))
-        self._layout = _Layout(self.k, slab)
+        self._layout = Layout(self.k, slab)
         self._statics = None  # per-slab device tensors + host pack maps
         self.programs_run = set()
         self._pending = []  # queued sample slots awaiting dispatch
@@ -330,7 +158,7 @@ class DevicePrefixScorer:
 
     def _finalize(self):
         if self._statics is None:
-            with _phase("dprefix_setup", *self.devices):
+            with phase("dprefix_setup", *self.devices):
                 self._build_statics()
 
     def _build_statics(self):
@@ -439,7 +267,7 @@ class DevicePrefixScorer:
         exc_val = np.ascontiguousarray(exc_val, np.uint32)
         slot = {"key": key, "bits": [], "runs": []}
         count_sums = []
-        with _phase("dprefix_pack"):
+        with phase("dprefix_pack"):
             self._pack_sample(
                 slot, count_sums, counts_u8, exc_idx, exc_val,
                 self.uplink != "bitmap",
@@ -552,7 +380,7 @@ class DevicePrefixScorer:
         chunk = -(-self.batch // self._spread)
         handles = []
         for si, st in enumerate(self._statics):
-            with _phase("dprefix_pack"):
+            with phase("dprefix_pack"):
                 if kind == "runs":
                     # a slot is padded to the budget of its pack time:
                     # size the payload by the slots, so that no queued
@@ -570,10 +398,10 @@ class DevicePrefixScorer:
                                                     st["tensors"])):
                 if j * chunk >= len(group):
                     break
-                with _phase("dprefix_upload", slot):
+                with phase("dprefix_upload", slot):
                     payload = torch.from_numpy(
                         mat[j * chunk : (j + 1) * chunk]).to(slot.device)
-                with _phase("dprefix_scan", slot):
+                with phase("dprefix_scan", slot):
                     slab_handles.append(fn(payload, *tensors, k=self.k))
             handles.append(slab_handles)
         return handles
@@ -583,7 +411,7 @@ class DevicePrefixScorer:
         joining the row chunks of each slab's pool."""
         arrs = self._group_handles[token]
         if arrs and not isinstance(arrs[0], np.ndarray):
-            with _phase("dprefix_fetch", *self.devices):
+            with phase("dprefix_fetch", *self.devices):
                 arrs = [
                     np.concatenate([h.cpu().numpy() for h in slab], axis=1)
                     for slab in arrs
@@ -610,7 +438,7 @@ class DevicePrefixScorer:
             self._group_handles.pop(token, None)
         csums = self._csums.pop(key)
         out = {
-            name: {f: np.zeros(nw, np.int64) for f in _FIELDS + ("count_sum",)}
+            name: {f: np.zeros(nw, np.int64) for f in FIELDS + ("count_sum",)}
             for name, nw in self._layout.chrom_n_win.items()
         }
         for si, slab in enumerate(self._layout.slabs):
@@ -618,7 +446,7 @@ class DevicePrefixScorer:
             csum_kind, csum = csums[si]
             for chrom, c_off, s_off, cnt in slab["wins"]:
                 dst = out[chrom]
-                for fi, f in enumerate(_FIELDS):
+                for fi, f in enumerate(FIELDS):
                     dst[f][c_off : c_off + cnt] = arr[
                         fi, row, s_off : s_off + cnt
                     ]

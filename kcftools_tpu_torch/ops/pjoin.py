@@ -22,129 +22,29 @@ a planar byte unpacks as ``(w >> 8b) & 0xFF`` - the mask undoes the sign
 extension of the arithmetic shift. The output is the uint32 sum's bit
 pattern in an int32 tensor; read it as ``out.long() & 0xFFFFFFFF``.
 
-The numpy host helpers (``quantile_partition_ids``, ``tile_sorted``,
-``build_pjoin_table``, ``route_queries``) are copies of the JAX
-module's, which cannot be imported without jax. One difference:
-``quantile_partition_ids`` clamps to P-1 the key whose top 32 bits are
-all set (the k=32 palindrome T^16A^16, or any such key of a forward-only
-database), which the JAX function sends one past the last partition.
+The numpy host tiling (``quantile_partition_ids``, ``tile_sorted``,
+``pack_planar``) is a copy of the JAX module's, which cannot be imported
+without jax: the device join's fallback where the native packer is not
+built, and the tests' reference for the packer and for ``ops/route.py``.
+One difference: ``quantile_partition_ids`` clamps to P-1 the key whose
+top 32 bits are all set (the k=32 palindrome T^16A^16, or any such key
+of a forward-only database), which the JAX function sends one past the
+last partition.
 """
 
 import numpy as np
 import torch
 
 from ..engine.encode import split_hi_lo
-from ..engine.hashtable import bucket_hashes_np
-from ..native import sort_pairs
-from ..utils.logger import Logger
 
-_CLASS = "PJoin"
-
-DEFAULT_TILE = 512
-_LANE = 128
+LANE = 128  # tile widths are multiples of this
 
 # plain version: elements of the (B, Tq, Tt) match mask per partition block
 _REF_BLOCK_ELEMS = 1 << 24
 
 
-def _round_up(n, m):
+def round_up(n, m):
     return ((n + m - 1) // m) * m
-
-
-def _next_pow2(x):
-    n = 1
-    while n < x:
-        n <<= 1
-    return n
-
-
-def partition_of(hi, lo, P):
-    """Partition id of each (hi, lo) key for the hashed table layout:
-    the two-choice table's first bucket hash masked to P."""
-    h1, _ = bucket_hashes_np(hi, lo, P)
-    return h1
-
-
-class PJoinTable:
-    """Host-layout partitioned table: (P, T_t) uint32 hi / lo / cnt."""
-
-    def __init__(self, th, tl, tc, k, n_keys, both_strands=True):
-        self.th = th
-        self.tl = tl
-        self.tc = tc
-        self.k = k
-        self.n_keys = n_keys
-        self.P = th.shape[0]
-        self.tile = th.shape[1]
-        self.both_strands = both_strands
-
-    @property
-    def nbytes(self):
-        return self.th.nbytes + self.tl.nbytes + self.tc.nbytes
-
-
-def build_pjoin_table(keys_u64, counts, k, tile=DEFAULT_TILE,
-                      fill=0.65, both_strands=True):
-    """Hashed partition + pad. Grows the tile if any partition
-    overflows (rare at the default fill)."""
-    keys_u64 = np.asarray(keys_u64, np.uint64)
-    counts = np.ascontiguousarray(counts, np.uint32)
-    n = keys_u64.shape[0]
-    hi, lo = split_hi_lo(keys_u64, k)
-    P = max(1, _next_pow2(int(np.ceil(n / (tile * fill)))))
-    while True:
-        part = partition_of(hi, lo, P)
-        per = np.bincount(part, minlength=P)
-        mx = int(per.max()) if n else 0
-        if mx <= tile:
-            break
-        tile = _round_up(mx, _LANE)
-    th = np.zeros((P, tile), np.uint32)
-    tl = np.zeros((P, tile), np.uint32)
-    tc = np.zeros((P, tile), np.uint32)
-    if n:
-        order = np.argsort(part, kind="stable")
-        ps = part[order]
-        rank = np.arange(n) - np.concatenate(([0], np.cumsum(per)))[ps]
-        th[ps, rank] = hi[order]
-        tl[ps, rank] = lo[order]
-        tc[ps, rank] = counts[order]
-    tbl = PJoinTable(th, tl, tc, k, n, both_strands)
-    Logger.info(
-        _CLASS,
-        f"Built pjoin table: {n} keys, {P} partitions x {tile} "
-        f"({n / max(1, P * tile):.2f} fill, {tbl.nbytes / 1e6:.1f} MB)",
-    )
-    return tbl
-
-
-def route_queries(kmers_u64, k, P, tile=None):
-    """Group a query batch by hashed partition: (q_hi, q_lo) (P, T_q)
-    uint32 tiles + src (P, T_q) int32 source indices (-1 = padding)."""
-    kmers_u64 = np.asarray(kmers_u64, np.uint64)
-    n = kmers_u64.shape[0]
-    hi, lo = split_hi_lo(kmers_u64, k)
-    part = partition_of(hi, lo, P)
-    per = np.bincount(part, minlength=P)
-    mx = int(per.max()) if n else 0
-    if tile is None:
-        tile = max(_LANE, _next_pow2(mx))
-    elif mx > tile:
-        raise ValueError(f"query tile {tile} < max partition {mx}")
-    comp = (part.astype(np.uint64) << np.uint64(32)) | np.arange(
-        n, dtype=np.uint64
-    )
-    comp_s, _ = sort_pairs(comp, np.empty(n, np.uint32))
-    order = (comp_s & np.uint64(0xFFFFFFFF)).astype(np.int64)
-    ps = (comp_s >> np.uint64(32)).astype(np.int64)
-    rank = np.arange(n) - np.concatenate(([0], np.cumsum(per)))[ps]
-    qh = np.zeros((P, tile), np.uint32)
-    ql = np.zeros((P, tile), np.uint32)
-    src = np.full((P, tile), -1, np.int32)
-    qh[ps, rank] = hi[order]
-    ql[ps, rank] = lo[order]
-    src[ps, rank] = order.astype(np.int32)
-    return qh, ql, src
 
 
 def raw_quantile_ids(keys_u64, b, k):
@@ -179,7 +79,7 @@ def tile_sorted(keys_sorted, k, b, tile=None, counts=None):
     per = np.bincount(part, minlength=P)
     mx = int(per.max()) if n else 0
     if tile is None:
-        tile = max(_LANE, _round_up(mx, _LANE))
+        tile = max(LANE, round_up(mx, LANE))
     elif mx > tile:
         raise OverflowError(
             f"partition {int(per.argmax())} has {mx} > tile {tile}"

@@ -5,9 +5,9 @@ From the sorted unique reference k-mers, ``route_reference`` builds the
 slot of each key; from the slabs' reference ordinals, ``route_slabs``
 builds the window scan's slot maps and valid bitmaps
 (``slabs_scan_join``). Bit for bit they equal the host numpy they
-replace: ``ops/pjoin.py::tile_sorted`` (which stays, for
-``build_pjoin_table``'s callers and as the tests' reference) and the
-slot map ``slot_of_ord[r_idx]`` with ``np.packbits(r_idx >= 0,
+replace: ``ops/pjoin.py::tile_sorted`` (which stays, as the tests'
+reference and the native packer's fallback) and the slot map
+``slot_of_ord[r_idx]`` with ``np.packbits(r_idx >= 0,
 bitorder="little")``.
 
 On CUDA tensors each launches the hand-written kernels of
@@ -23,7 +23,7 @@ its top bits are taken, so that no int64 step overflows.
 
 import torch
 
-from .pjoin import _LANE, _round_up
+from .pjoin import LANE, round_up
 
 
 def _check_keys(keys, k, b):
@@ -66,7 +66,7 @@ def route_reference_ref(keys, k, b):
     part = partition_ids(keys, k, b)
     per = torch.bincount(part, minlength=P)
     mx = int(per.max()) if n else 0
-    Tq = max(_LANE, _round_up(mx, _LANE))
+    Tq = max(LANE, round_up(mx, LANE))
     _check_slots(P, Tq)
     start = torch.cumsum(per, 0) - per
     slot = part * Tq + (torch.arange(n, device=keys.device) - start[part])
@@ -105,7 +105,7 @@ def route_reference(keys, k, b):
     start = torch.empty(P + 1, dtype=torch.int64, device=dev)
     width = torch.empty(1, dtype=torch.int64, device=dev)
     launch("kcf_route_starts", keys, n, k, b, start, width)
-    Tq = max(_LANE, _round_up(int(width.item()), _LANE))
+    Tq = max(LANE, round_up(int(width.item()), LANE))
     _check_slots(P, Tq)
     qh = torch.empty((P, Tq), dtype=torch.int32, device=dev)
     ql = torch.empty_like(qh)

@@ -6,7 +6,8 @@ copied here as it is: the parser (``add_parser``), ``_validate``, the
 KMC ingest helpers (``_merge_streamed``, ``_db_fits_ram``,
 ``_sort_db``), the window plan (``_build_window_plan``), the positional
 engines' per-sample assembly and KCF write (``_run_one_sample``, without
-the on-chip hash branch), ``_make_block``, ``_chunk_geometry`` and the
+the on-chip hash branch, its header and write step in ``_write_kcf``),
+``_make_block``, ``_chunk_geometry`` and the
 host engine's scans (``_score_fixed_windows_hybrid``,
 ``_score_feature_windows_hybrid``). What the port owns is the engine
 routing and the device engines. On one device:
@@ -15,7 +16,7 @@ routing and the device engines. On one device:
   join on the card);
 - ``--engine device``, gene/transcript features, k <= 32: the on-chip
   hash engine (a per-sample hash table on the card, WindowScorer), with
-  its own header/assembly/write step (``_run_hash_sample``);
+  its own assembly (``_run_hash_sample``) and the shared ``_write_kcf``;
 - ``--engine dprefix``, every mode and any k: the DevicePrefixScorer (the
   gap-run scans on the card), also behind the streamed low-memory
   ingest;
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from ..engine.device_join import DeviceJoinScorer
-from ..engine.device_prefix import DevicePrefixScorer, _phase
+from ..engine.device_prefix import DevicePrefixScorer
 from ..engine.hashtable import build_table
 from ..engine.hostscan import WORTH_SAMPLES, OrdinalWindowScanner
 from ..engine.pipeline import WindowScorer, combine_u8
@@ -71,7 +72,13 @@ from ..native import (
 from ..parallel.loader import ShardedTableLoader
 from ..parallel.mesh import make_mesh
 from ..parallel.sharded import ShardedWindowScorer
-from ..torchinit import ENV, VIRTUAL_ENV, process_index, resolve_devices
+from ..torchinit import (
+    ENV,
+    VIRTUAL_ENV,
+    phase,
+    process_index,
+    resolve_devices,
+)
 from ..utils.logger import Logger
 from ..utils.stagetimer import (
     count as stage_count,
@@ -339,7 +346,7 @@ def _screen(args):
                 _run_hash_sample(args, index, gtf, k, scorer, sample,
                                  out_path)
                 continue
-            with _phase("hash_table_upload", devices[0].device):
+            with phase("hash_table_upload", devices[0].device):
                 if hash_scorer is None or hash_scorer.k != k or (
                     hash_scorer.both_strands != kmc.both_strands
                 ):
@@ -667,22 +674,10 @@ def _run_one_sample(args, index, gtf, refidx, kmc, k, sample, out_path,
     # else: device engine, batched flow: the sample was already merged
     # and submitted under dkey; only assembly + writing remain
 
-    header = KCFHeader()
-    header.reference = args.reference
-    header.add_command_line(get_command_line())
-    header.add_sample(sample)
-    header.window_size = args.window
-    header.step_size = args.step
-    header.kmer_size = k
-    header.is_ibs = False
-    header.set_weights(args.wi, args.wt, args.wr)
-    weights = (args.wi, args.wt, args.wr)
-
     Logger.info(_CLASS, "Generating windows...")
-    pending = []
+    blocks = []
     with stage("scan"):
         for name in index.get_sequence_names():
-            header.add_contig(name, index.get_sequence_length(name))
             if args.feature == "window":
                 block = _score_fixed_windows_hybrid(
                     args, index, refidx, counts_r, name, k, sample,
@@ -694,27 +689,40 @@ def _run_one_sample(args, index, gtf, refidx, kmc, k, sample, out_path,
                     args, refidx, counts_r, name, k, sample, u8_pack,
                     dscorer=dscorer, dkey=dkey
                 )
-            if block is not None:
-                pending.append(block)
+            blocks.append(block)
+    _write_kcf(args, index, k, sample, out_path, blocks)
 
-    blocks = []
-    total_windows = 0
-    for block in pending:
-        if len(block) > 0:
-            # reference sorts each chromosome's windows by start
-            order = np.argsort(block.start, kind="stable")
-            blocks.append(block.select(order))
-            total_windows += len(block)
+
+def _write_kcf(args, index, k, sample, out_path, blocks):
+    """One sample's KCF from its chromosome blocks (None or empty ones
+    are skipped): the header, each chromosome's windows sorted by start
+    as the reference does, then the ``write`` stage."""
+    header = KCFHeader()
+    header.reference = args.reference
+    header.add_command_line(get_command_line())
+    header.add_sample(sample)
+    header.window_size = args.window
+    header.step_size = args.step
+    header.kmer_size = k
+    header.is_ibs = False
+    header.set_weights(args.wi, args.wt, args.wr)
+    for name in index.get_sequence_names():
+        header.add_contig(name, index.get_sequence_length(name))
+    blocks = [
+        b.select(np.argsort(b.start, kind="stable"))
+        for b in blocks
+        if b is not None and len(b) > 0
+    ]
+    total_windows = sum(len(b) for b in blocks)
     Logger.info(_CLASS, f"Number of windows: {total_windows}")
     header.window_count = total_windows
+    weights = (args.wi, args.wt, args.wr)
     with stage("write"), KCFWriter(out_path) as writer:
         writer.write_header(header)
         for block in blocks:
             block.finalize(weights)
             writer.write_block(block)
-    Logger.info(
-        _CLASS, f"Wrote {total_windows} windows to {out_path}"
-    )
+    Logger.info(_CLASS, f"Wrote {total_windows} windows to {out_path}")
 
 
 def _make_block(sample, name, starts, ends, ids, res, k):
@@ -956,41 +964,18 @@ def _run_hash_sample(args, index, gtf, k, scorer, sample, out_path):
     features, or fixed windows on the mesh): score every chromosome's
     windows, then write the KCF as the JAX package's
     ``_run_one_sample`` does."""
-    header = KCFHeader()
-    header.reference = args.reference
-    header.add_command_line(get_command_line())
-    header.add_sample(sample)
-    header.window_size = args.window
-    header.step_size = args.step
-    header.kmer_size = k
-    header.is_ibs = False
-    header.set_weights(args.wi, args.wt, args.wr)
-    weights = (args.wi, args.wt, args.wr)
-
     Logger.info(_CLASS, "Generating windows...")
     blocks = []
     with stage("scan"):
         for name in index.get_sequence_names():
-            header.add_contig(name, index.get_sequence_length(name))
             if args.feature == "window":
                 block = _score_fixed_windows(args, index, name, k, scorer,
                                              sample)
             else:
                 block = _score_feature_windows(args, index, gtf, name, k,
                                                scorer, sample)
-            if block is not None and len(block) > 0:
-                # reference sorts each chromosome's windows by start
-                order = np.argsort(block.start, kind="stable")
-                blocks.append(block.select(order))
-    total_windows = sum(len(b) for b in blocks)
-    Logger.info(_CLASS, f"Number of windows: {total_windows}")
-    header.window_count = total_windows
-    with stage("write"), KCFWriter(out_path) as writer:
-        writer.write_header(header)
-        for block in blocks:
-            block.finalize(weights)
-            writer.write_block(block)
-    Logger.info(_CLASS, f"Wrote {total_windows} windows to {out_path}")
+            blocks.append(block)
+    _write_kcf(args, index, k, sample, out_path, blocks)
 
 
 def _score_fixed_windows(args, index, name, k, scorer, sample):

@@ -14,12 +14,18 @@ for tests and the smoke run, and never moves work off that device. Under
 ``torch.distributed`` every process contributes its local slots, in rank
 order. A slot is identified by its position, never by its
 ``torch.device``: on a virtual mesh several slots share one device.
+
+``phase`` is the stage timer's stage (``utils/stagetimer.py``) that
+first waits for the devices it names (``sync_devices``); the device
+engines and getVariations time their device work with it.
 """
 
 import os
 from typing import NamedTuple
 
 import torch
+
+from .utils import stagetimer
 
 ENV = "KCFTOOLS_TORCH_DEVICE"
 VIRTUAL_ENV = "KCFTOOLS_TORCH_VIRTUAL_DEVICES"
@@ -111,3 +117,20 @@ def sync_devices(devices):
         if d.type == "cuda" and d not in seen:
             seen.add(d)
             torch.cuda.synchronize(d)
+
+
+class phase(stagetimer.stage):
+    """A stagetimer stage that first waits for the queued work of every
+    device it names (torch devices or mesh slots), so that device time
+    lands in the phase that queued it."""
+
+    __slots__ = ("devices",)
+
+    def __init__(self, name, *devices):
+        super().__init__(name)
+        self.devices = devices
+
+    def __exit__(self, *exc):
+        if self.on:
+            sync_devices(self.devices)
+        return super().__exit__(*exc)

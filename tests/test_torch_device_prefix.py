@@ -151,10 +151,10 @@ def test_runs_presence_trailing_run_and_padding():
     want = torch.ones(n, dtype=torch.bool)
     for a, b in ((10, 30), (285, 540), (580, 585)):
         want[a:b] = False
-    assert torch.equal(tdp._runs_presence(dl, valid), want)
+    assert torch.equal(tgs._runs_presence(dl, valid), want)
     # a final run through the end of the slab (its end is n: dropped)
     dl2 = torch.tensor([[5, 0], [200, 0]], dtype=torch.uint8)
-    got = tdp._runs_presence(dl2, torch.ones(205, dtype=torch.bool))
+    got = tgs._runs_presence(dl2, torch.ones(205, dtype=torch.bool))
     assert not got[5:].any() and got[:5].all()
 
 

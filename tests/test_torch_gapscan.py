@@ -37,7 +37,6 @@ import torch
 
 from kcftools_tpu.engine import device_join as jdj
 from kcftools_tpu.engine import device_prefix as jdp
-from kcftools_tpu_torch.engine import device_prefix as tdp
 from kcftools_tpu_torch.native import build_ordmap, ordpack, pack_posbits
 from kcftools_tpu_torch.ops import gapscan as tgs
 
@@ -624,9 +623,9 @@ def test_runs_presence_batched_equals_rows():
     dl = np.zeros((len(rows), 2, cap), np.uint8)
     for i, r in enumerate(rows):
         dl[i, :, : r.shape[1]] = r
-    got = tdp._runs_presence(_t(dl), _t(valid))
+    got = tgs._runs_presence(_t(dl), _t(valid))
     assert got.shape == pr.shape
     for i in range(len(rows)):
-        assert torch.equal(got[i], tdp._runs_presence(_t(dl[i]), _t(valid)))
+        assert torch.equal(got[i], tgs._runs_presence(_t(dl[i]), _t(valid)))
     np.testing.assert_array_equal(got.numpy(), pr)
-    np.testing.assert_array_equal(tdp._pack_bits(got).numpy(), bits(pr))
+    np.testing.assert_array_equal(tgs._pack_bits(got).numpy(), bits(pr))

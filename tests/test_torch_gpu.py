@@ -519,7 +519,7 @@ def test_gapscan_main_width(cuda_device):
                                 dtype=torch.int32)  # counts >= 2^31
     slot_map = torch.randint(0, routed.numel(), (n,), generator=g,
                              device=cuda_device, dtype=torch.int32)
-    vb = tdp._pack_bits(valid[None])[0]
+    vb = tgs._pack_bits(valid[None])[0]
     ws = torch.arange(0, n - width, width, device=cuda_device)
     pad = 4096 - ws.numel()
     ws = torch.cat([ws, torch.zeros(pad, dtype=torch.int64,
@@ -533,7 +533,7 @@ def test_gapscan_main_width(cuda_device):
     assert torch.equal(got, want)
     assert int(got[0].sum()) > n // 2
     pres = (torch.rand((2, n), generator=g, device=cuda_device) < 0.9) & valid
-    pb = tdp._pack_bits(pres)
+    pb = tgs._pack_bits(pres)
     got = tgs.rows_scan(pb, vb, ws, wh, k=31)
     assert torch.equal(got, tgs.rows_scan_ref(pb, vb, ws, wh, k=31))
     # two slabs of the same width in one JOIN launch

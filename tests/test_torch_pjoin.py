@@ -18,6 +18,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from kcftools_tpu.ops import pjoin as jpj
+from kcftools_tpu_torch.engine.encode import canonicalize
 from kcftools_tpu_torch.ops import pjoin as tpj
 
 _TOP32 = np.uint64(0xFFFFFFFF00000000)  # k=32 T^16A^16 (a palindrome)
@@ -70,58 +71,64 @@ def _counts(rng, n, packed):
     return c
 
 
+def _canonical(rng, n, k):
+    """n random canonical k-mers, the values a KMC database holds: their
+    density falls as 2 - 2u, which the quantile tiling evens out."""
+    return canonicalize(rng.integers(0, 1 << (2 * k), n, dtype=np.uint64),
+                        k)
+
+
 @pytest.mark.parametrize("packed", [False, True], ids=["u32", "packed"])
 @pytest.mark.parametrize("n_keys", [0, 1, 37, 5000, 200_000])
 def test_pjoin_ref_matches_pallas_xla_oracle(n_keys, packed):
     rng = np.random.default_rng(n_keys + packed)
     k = 31
-    keys = np.unique(
-        rng.integers(0, 1 << (2 * k), max(n_keys, 1), dtype=np.uint64)
-    )[:n_keys]
+    keys = np.unique(_canonical(rng, max(n_keys, 1), k))[:n_keys]
     if n_keys > 1:
         keys[0] = 0  # the all-A k-mer, which padding slots also match
     counts = _counts(rng, keys.shape[0], packed)
-    tbl = tpj.build_pjoin_table(keys, counts, k)
-    jtbl = jpj.build_pjoin_table(keys, counts, k)
-    for a, b in ((tbl.th, jtbl.th), (tbl.tl, jtbl.tl), (tbl.tc, jtbl.tc)):
-        assert np.array_equal(a, b)
+    b = max(1, (keys.shape[0] // 256).bit_length())
+    th, tl, tc, _, _ = tpj.tile_sorted(keys, k, b, counts=counts)
 
     n_q = 4096
-    q = np.concatenate([
+    q = np.unique(np.concatenate([
         rng.choice(keys, n_q) if keys.size else np.empty(0, np.uint64),
-        rng.integers(0, 1 << (2 * k), n_q, dtype=np.uint64),
+        _canonical(rng, n_q, k),
         np.zeros(4, np.uint64),
-    ])
-    qh, ql, src = tpj.route_queries(q, k, tbl.P)
-    for a, b in zip((qh, ql, src), jpj.route_queries(q, k, tbl.P)):
-        assert np.array_equal(a, b)
-    tc = tpj.pack_planar(tbl.tc) if packed else tbl.tc
+    ]))
+    qh, ql, _, rank, part = tpj.tile_sorted(q, k, b)
+    tc = tpj.pack_planar(tc) if packed else tc
 
-    got = _port(qh, ql, tbl.th, tbl.tl, tc, packed)
-    assert np.array_equal(got, _pallas(qh, ql, tbl.th, tbl.tl, tc, packed))
-    assert np.array_equal(got, _xla(qh, ql, tbl.th, tbl.tl, tc, packed))
+    got = _port(qh, ql, th, tl, tc, packed)
+    assert np.array_equal(got, _pallas(qh, ql, th, tl, tc, packed))
+    assert np.array_equal(got, _xla(qh, ql, th, tl, tc, packed))
 
     oracle = dict(zip(keys.tolist(), counts.tolist()))
-    live = src >= 0
     exp = np.array([oracle.get(int(x), 0) for x in q], np.uint32)
-    res = np.zeros(q.shape[0], np.uint32)
-    res[src[live]] = got[live]
-    assert np.array_equal(res, exp)
+    assert np.array_equal(got[part, rank], exp)
 
 
-def test_pjoin_tile_regrow():
+def test_tile_sorted_tile_bound():
+    """A tile below the fullest partition raises in both packages; a
+    tile of exactly its size tiles every key and joins exactly."""
     rng = np.random.default_rng(3)
-    k = 31
+    k, b = 31, 4
     keys = np.unique(rng.integers(0, 1 << 62, 9000, dtype=np.uint64))
     counts = rng.integers(256, 1 << 20, keys.shape[0]).astype(np.uint32)
-    tbl = tpj.build_pjoin_table(keys, counts, k, tile=128, fill=4.0)
-    assert tbl.tile > 128  # fill > 1 overflows the first tile
-    qh, ql, src = tpj.route_queries(keys[:500], k, tbl.P)
-    got = _port(qh, ql, tbl.th, tbl.tl, tbl.tc, False)
-    assert np.array_equal(got, _pallas(qh, ql, tbl.th, tbl.tl, tbl.tc, False))
-    res = np.zeros(500, np.uint32)
-    res[src[src >= 0]] = got[src >= 0]
-    assert np.array_equal(res, counts[:500])
+    mx = int(np.bincount(tpj.quantile_partition_ids(keys, b, k)).max())
+    assert mx % tpj.LANE  # not a width the default tile would pick
+    for pj in (tpj, jpj):
+        with pytest.raises(OverflowError):
+            pj.tile_sorted(keys, k, b, tile=mx - 1, counts=counts)
+    th, tl, tc, _, _ = tpj.tile_sorted(keys, k, b, tile=mx, counts=counts)
+    for a, w in zip((th, tl, tc),
+                    jpj.tile_sorted(keys, k, b, tile=mx, counts=counts)):
+        assert np.array_equal(a, w)
+    sel = np.arange(0, keys.shape[0], 18)
+    qh, ql, _, rank, part = tpj.tile_sorted(keys[sel], k, b)
+    got = _port(qh, ql, th, tl, tc, False)
+    assert np.array_equal(got, _pallas(qh, ql, th, tl, tc, False))
+    assert np.array_equal(got[part, rank], counts[sel])
 
 
 @pytest.mark.parametrize("k", [17, 21, 31, 32])

@@ -10,7 +10,7 @@ import torch
 
 from kcftools_tpu.engine import device_join as jdj
 from kcftools_tpu.engine import device_prefix as jdp
-from kcftools_tpu_torch.engine import device_prefix as tdp
+from kcftools_tpu_torch.engine.slabs import Layout
 from kcftools_tpu_torch.ops import gapscan as tgs
 
 
@@ -97,7 +97,7 @@ def test_slab_scan_matches_jax(min_count):
 def test_layout_matches_jax(slab_pos):
     rng = np.random.default_rng(slab_pos)
     k = 21
-    ours, theirs = tdp._Layout(k, slab_pos), jdp._Layout(k, slab_pos)
+    ours, theirs = Layout(k, slab_pos), jdp._Layout(k, slab_pos)
     for name, L in (("a", 5000), ("b", 1200), ("c", 40)):
         r_idx = rng.integers(-1, 10_000, L - k + 1).astype(np.int32)
         starts = np.arange(0, L - k, 300)

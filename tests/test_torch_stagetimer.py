@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from kcftools_tpu_torch.engine import device_join as tdj
-from kcftools_tpu_torch.engine import device_prefix as tdp
+from kcftools_tpu_torch import torchinit
 from kcftools_tpu_torch.utils import stagetimer as st
 
 from .gen import mutate, random_seq, write_fasta
@@ -98,8 +98,8 @@ def test_off_path_does_nothing(monkeypatch):
     monkeypatch.setattr(st.time, "perf_counter", boom)
     monkeypatch.setattr(st, "_lock", NoLock())
     monkeypatch.setattr(torch.profiler, "record_function", boom)
-    monkeypatch.setattr(tdp, "sync_devices", boom)
-    with st.stage("a"), tdp._phase("b", torch.device("cpu")):
+    monkeypatch.setattr(torchinit, "sync_devices", boom)
+    with st.stage("a"), torchinit.phase("b", torch.device("cpu")):
         st.count("c", 5)
     assert st._acc == {} and st._counts == {}
 
@@ -112,7 +112,7 @@ def test_profiler_ranges(monkeypatch, tmp_path):
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         with st.stage("outer_span"):
-            with tdp._phase("inner_span", torch.device("cpu")):
+            with torchinit.phase("inner_span", torch.device("cpu")):
                 torch.ones(8).sum()
     path = str(tmp_path / "trace.json")
     prof.export_chrome_trace(path)
