@@ -17,6 +17,8 @@ host plugins), which imports no jax there either.
 
 Layout (mirrors kcftools_tpu):
   io/                   host I/O: FASTA, KMC3, GTF, KCF (copies)
+  io/rawfile.py         the raw, aligned, mapped cache files (the
+                        sorted sidecar, the reference index)
   native/               the C++ host library, built by g++ at first use
                         into _build/ (copy)
   utils/                logging, stage timer, Java formatting (copies)

@@ -50,6 +50,7 @@ the kernels, 0 for one routed by the plain torch version (a CPU device).
 
 import ctypes
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -130,9 +131,15 @@ def _h2d_rows(arrays, width, dtype, dev):
 
 def _ref_keys(refk):
     """The sorted uint64 reference k-mers as an int64 CPU tensor of the
-    same bits."""
-    return torch.from_numpy(np.ascontiguousarray(refk, np.uint64)
-                            .view(np.int64))
+    same bits. The keys are a read-only view of the mapped index file
+    where it was loaded; the tensor is only read (copied to the device,
+    or routed in place on a CPU device), so torch's warning that it
+    could write there is silenced for this call alone."""
+    keys = np.ascontiguousarray(refk, np.uint64).view(np.int64)
+    with warnings.catch_warnings():
+        warnings.filterwarnings(
+            "ignore", "The given NumPy array is not writable")
+        return torch.from_numpy(keys)
 
 
 class DeviceJoinScorer:

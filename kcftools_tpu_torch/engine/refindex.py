@@ -11,20 +11,67 @@ turns each sample's lookup phase into one sorted-merge join of R against
 the sample's (sorted) KMC table plus one small-table gather - both
 host-bandwidth operations in the native tier - leaving the TPU the dense
 window-scan work. The artifact is cached beside the FASTA
-(``<fasta>.kcfidx.k<k>[.fwd].npz``) and regenerated on staleness, like
+(``<fasta>.kcfidx.k<k>[.fwd].raw``) and regenerated on staleness, like
 the reference's faidx sidecar (FastaIndex.java:31-36).
+
+The cache is a file of ``io/rawfile.py``: a fixed little-endian header
+(magic, format version, k, the canonical flag, the key kind and a key's
+width in bytes, the chromosome count, the key count, the FASTA's size
+as a content fingerprint, the names' UTF-8 length, the file's total
+length), every section's byte offset, then the sections at 64-byte-
+aligned offsets: the chromosome table (int64 rows of a name's UTF-8
+length and its r_idx length), the names as one UTF-8 blob, the key
+arrays (kind 1: one uint64 limb, k <= 32; kind 2: the hi and lo limbs,
+33..64; kind 3: S{width} byte records, k > 64) and each chromosome's
+int32 r_idx. A load maps the file and views the keys and r_idx in
+place, read-only: their pages fault in where they are first read.
 """
 
 import os
+import struct
 
 import numpy as np
 
+from ..io import rawfile
 from ..utils.logger import Logger
 from ..utils.stagetimer import count, stage
 from .encode import canonicalize, pack_kmers
+from .encode_mlimb import n_bytes
 
 _CLASS = "RefKmerIndex"
-_FORMAT_VERSION = 1
+_MAGIC = b"KCFRIDX\0"
+_VERSION = 1
+_HEAD = struct.Struct("<8s6I4Q")
+
+
+def _key_kind(k):
+    """(kind, a key's width in bytes, the key arrays' dtypes) for k."""
+    if k <= 32:
+        return 1, 8, ("<u8",)
+    if k <= 64:
+        return 2, 16, ("<u8", "<u8")
+    nb = n_bytes(k)
+    return 3, nb, (f"S{nb}",)
+
+
+def _layout(n_keys, dtypes, names_bytes, ridx_lens):
+    """Every section's byte offset and the total length of an index
+    file of ``n_keys`` keys over chromosomes of ``ridx_lens``."""
+    n_chroms = len(ridx_lens)
+    head = _HEAD.size + 8 * (2 + len(dtypes) + n_chroms)
+    sizes = [16 * n_chroms, names_bytes]
+    sizes += [np.dtype(d).itemsize * n_keys for d in dtypes]
+    sizes += [4 * int(m) for m in ridx_lens]
+    return rawfile.layout(head, sizes)
+
+
+def _chrom_table(names, ridx_lens):
+    """The names' UTF-8 blob and the (n, 2) int64 table of each name's
+    byte length and r_idx length."""
+    blobs = [n.encode() for n in names]
+    table = np.array([(len(b), m) for b, m in zip(blobs, ridx_lens)],
+                     "<i8").reshape(-1, 2)
+    return b"".join(blobs), table
 
 
 class RefKmerIndex:
@@ -55,8 +102,15 @@ class RefKmerIndex:
 
     @staticmethod
     def cache_path(fasta_path, k, canonical):
-        suffix = f".kcfidx.k{k}" + ("" if canonical else ".fwd") + ".npz"
+        suffix = f".kcfidx.k{k}" + ("" if canonical else ".fwd") + ".raw"
         return fasta_path + suffix
+
+    @property
+    def nbytes(self):
+        """The bytes of the keys and every r_idx."""
+        keys = (self.kmers_hi.nbytes + self.kmers_lo.nbytes if self.wide
+                else self.kmers.nbytes)
+        return keys + sum(r.nbytes for r in self.chrom_r_idx.values())
 
     @classmethod
     def build(cls, index, k, canonical=True):
@@ -79,7 +133,7 @@ class RefKmerIndex:
             # byte-record keys share this exact algorithm: numpy S{nb}
             # comparisons are memcmp, so unique/searchsorted order
             # matches the packed numeric order (engine/encode_mlimb.py)
-            from .encode_mlimb import canonical_kmer_bytes, n_bytes
+            from .encode_mlimb import canonical_kmer_bytes
 
             empty = np.empty(0, f"S{n_bytes(k)}")
         else:
@@ -247,50 +301,100 @@ class RefKmerIndex:
 
     @classmethod
     def load_or_build(cls, fasta_path, index, k, canonical=True):
+        """The index of ``fasta_path`` from its cache file, or built and
+        cached where the file is missing, stale or not this reference's.
+        A hit adds 0 to the stage timer's ``refindex_built`` and the key
+        and r_idx bytes it served to ``refindex_bytes``; a miss adds 1
+        and 0."""
         path = cls.cache_path(fasta_path, k, canonical)
-        if os.path.exists(path) and os.path.getmtime(path) >= os.path.getmtime(
-            fasta_path
-        ):
-            try:
-                with np.load(path, allow_pickle=False) as z:
-                    if int(z["format_version"][0]) == _FORMAT_VERSION:
-                        names = [str(n) for n in z["chrom_names"]]
-                        ridx = {n: z[f"ridx_{i}"] for i, n in enumerate(names)}
-                        if "kmers_hi" in z.files:
-                            obj = cls(None, names, ridx, k, canonical,
-                                      kmers_hi=z["kmers_hi"],
-                                      kmers_lo=z["kmers_lo"])
-                        else:
-                            obj = cls(z["kmers"], names, ridx, k, canonical)
-                        Logger.info(_CLASS, f"Loaded cached index: {path}")
-                        count("refindex_built", 0)
-                        return obj
-            except Exception as e:
-                Logger.warning(_CLASS, f"Ignoring bad index cache {path}: {e}")
+        obj = cls._load(path, fasta_path, index, k, canonical)
+        if obj is not None:
+            Logger.info(_CLASS, f"Loaded cached index: {path}")
+            count("refindex_built", 0)
+            count("refindex_bytes", obj.nbytes)
+            return obj
         count("refindex_built", 1)
+        count("refindex_bytes", 0)
         with stage("refindex_build"):  # the build and its cache write
             obj = cls.build(index, k, canonical)
             try:
-                payload = {
-                    "format_version": np.array([_FORMAT_VERSION]),
-                    "chrom_names": np.array(obj.chrom_names),
-                }
-                if obj.wide:
-                    payload["kmers_hi"] = obj.kmers_hi
-                    payload["kmers_lo"] = obj.kmers_lo
-                else:
-                    payload["kmers"] = obj.kmers
-                for i, n in enumerate(obj.chrom_names):
-                    payload[f"ridx_{i}"] = obj.chrom_r_idx[n]
-                # Write-then-rename: a concurrent reader must never see a
-                # truncated cache and two writers must not interleave.
-                tmp = f"{path}.{os.getpid()}.tmp.npz"
-                np.savez(tmp, **payload)
-                os.replace(tmp, path)
+                obj._save(path, fasta_path)
                 Logger.info(_CLASS, f"Cached index: {path}")
-            except Exception as e:
+            except OSError as e:
                 Logger.warning(_CLASS, f"Could not cache index at {path}: {e}")
             return obj
+
+    @classmethod
+    def _load(cls, path, fasta_path, index, k, canonical):
+        """The cache file's arrays as read-only views of a memory map, or
+        None where it is absent, stale, damaged or another index's. The
+        checks read the header and the .fai's names and lengths, never
+        the sequence."""
+        kind, width, dtypes = _key_kind(k)
+        names = index.get_sequence_names()
+        ridx_lens = [max(0, index.get_sequence_length(n) - k + 1)
+                     for n in names]
+        blob, table = _chrom_table(names, ridx_lens)
+        try:
+            with open(path, "rb") as fh:
+                st = os.fstat(fh.fileno())
+                fasta = os.stat(fasta_path)
+                # '<=' (not '<'): a FASTA rewritten within the
+                # filesystem's timestamp granularity of the cache write
+                # must rebuild - the safe direction; its size is a cheap
+                # content fingerprint for the same window.
+                if st.st_mtime <= fasta.st_mtime:
+                    raise ValueError("stale")
+                (magic, version, hk, hcanon, hkind, hwidth, n_chroms,
+                 n_keys, size, names_bytes, htotal) = _HEAD.unpack(
+                    fh.read(_HEAD.size))
+                if (magic, version, hk, hcanon, hkind, hwidth, n_chroms,
+                        size, names_bytes) != (
+                        _MAGIC, _VERSION, k, int(canonical), kind, width,
+                        len(names), fasta.st_size, len(blob)):
+                    raise ValueError("not this reference's index")
+                offs, total = _layout(n_keys, dtypes, len(blob), ridx_lens)
+                got = struct.unpack(f"<{len(offs)}Q",
+                                    fh.read(8 * len(offs)))
+                if (list(got), htotal) != (offs, total) or (
+                        total != st.st_size):
+                    raise ValueError("damaged")
+                mm = rawfile.map_readonly(fh)
+        except (OSError, ValueError, struct.error):
+            return None
+        if (np.frombuffer(mm, "<i8", table.size, offs[0]).tobytes()
+                != table.tobytes()
+                or mm[offs[1]:offs[1] + len(blob)] != blob):
+            return None
+        keys = [np.frombuffer(mm, d, n_keys, off)
+                for d, off in zip(dtypes, offs[2:])]
+        ridx = {n: np.frombuffer(mm, "<i4", m, off)
+                for n, m, off in zip(names, ridx_lens,
+                                     offs[2 + len(dtypes):])}
+        if kind == 2:
+            return cls(None, names, ridx, k, canonical,
+                       kmers_hi=keys[0], kmers_lo=keys[1])
+        return cls(keys[0], names, ridx, k, canonical)
+
+    def _save(self, path, fasta_path):
+        """Write the index to ``path`` (``io/rawfile.py::write``: atomic,
+        raises OSError)."""
+        kind, width, dtypes = _key_kind(self.k)
+        keys = ((self.kmers_hi, self.kmers_lo) if self.wide
+                else (self.kmers,))
+        keys = [np.ascontiguousarray(a, d) for a, d in zip(keys, dtypes)]
+        ridx = [np.ascontiguousarray(self.chrom_r_idx[n], "<i4")
+                for n in self.chrom_names]
+        ridx_lens = [r.shape[0] for r in ridx]
+        blob, table = _chrom_table(self.chrom_names, ridx_lens)
+        n_keys = keys[0].shape[0]
+        offs, total = _layout(n_keys, dtypes, len(blob), ridx_lens)
+        head = _HEAD.pack(_MAGIC, _VERSION, self.k, int(self.canonical),
+                          kind, width, len(ridx), n_keys,
+                          os.path.getsize(fasta_path), len(blob), total)
+        head += struct.pack(f"<{len(offs)}Q", *offs)
+        blob_arr = np.frombuffer(blob, np.uint8)
+        rawfile.write(path, head, offs, total, [table, blob_arr, *keys, *ridx])
 
 
 class FeatureKmerIndex:
@@ -460,8 +564,6 @@ class FeatureKmerIndex:
             elif parts:
                 R = np.unique(np.concatenate(parts))
             elif k > 64:
-                from .encode_mlimb import n_bytes
-
                 R = np.empty(0, f"S{n_bytes(k)}")
             else:
                 R = np.empty(0, np.uint64)

@@ -22,7 +22,6 @@ documented envelope is KMC signature length 9 and k around 31;
 docs/general/limitations.md).
 """
 
-import mmap
 import os
 import struct
 
@@ -30,6 +29,7 @@ import numpy as np
 
 from ..utils.logger import Logger
 from ..utils.stagetimer import count
+from . import rawfile
 
 _CLASS = "KMC"
 _HEADER_BYTES = 68  # k..version inclusive: 7*u32 + u64 + 4*u8 + 6*u32 + u32
@@ -428,17 +428,16 @@ def choose_lut_prefix_length(k: int) -> int:
     return k  # degenerate tiny k
 
 
-# The sorted sidecar: a fixed little-endian header, then each key limb
-# (uint64; one for k <= 32, hi and lo for 33..64) and the uint32 counts,
-# each at a 64-byte-aligned offset, so a load maps the file and views
-# its arrays in place. Header: magic, format version, k, limbs, 0, n,
-# the .kmc_pre / .kmc_suf sizes (a content fingerprint), the byte
-# offsets of the first limb, the second (0 with one) and the counts,
-# and the file's total length.
+# The sorted sidecar (a file of ``io/rawfile.py``): a fixed little-endian
+# header, then each key limb (uint64; one for k <= 32, hi and lo for
+# 33..64) and the uint32 counts, each at a 64-byte-aligned offset, so a
+# load maps the file and views its arrays in place. Header: magic,
+# format version, k, limbs, 0, n, the .kmc_pre / .kmc_suf sizes (a
+# content fingerprint), the byte offsets of the first limb, the second
+# (0 with one) and the counts, and the file's total length.
 _SORTED_MAGIC = b"KCFSORT\0"
 _SORTED_VERSION = 1
 _SORTED_HEAD = struct.Struct("<8s4I7Q")
-_SORTED_ALIGN = 64
 
 
 def sorted_cache_path(db_prefix: str, k: int) -> str:
@@ -448,16 +447,11 @@ def sorted_cache_path(db_prefix: str, k: int) -> str:
 def _sorted_layout(n: int, limbs: int):
     """(first limb, second limb or 0, counts) byte offsets and the total
     length of a sidecar of ``n`` records."""
-    def align(x):
-        return -(-x // _SORTED_ALIGN) * _SORTED_ALIGN
-
-    offs = [align(_SORTED_HEAD.size)]
-    for _ in range(limbs):
-        offs.append(align(offs[-1] + 8 * n))
-    counts = offs.pop()
+    offs, total = rawfile.layout(_SORTED_HEAD.size,
+                                 [8 * n] * limbs + [4 * n])
     if limbs == 1:
-        offs.append(0)
-    return (*offs, counts), counts + 4 * n
+        offs.insert(1, 0)
+    return tuple(offs), total
 
 
 def _kmc_sizes(db_prefix: str):
@@ -498,7 +492,7 @@ def load_sorted_cache(db_prefix: str, k: int):
                     or total != st.st_size
                     or (tuple(offs), total) != _sorted_layout(n, limbs)):
                 raise ValueError("not this database's sidecar")
-            mm = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
+            mm = rawfile.map_readonly(fh)
     except (OSError, ValueError, struct.error):
         count("sidecar_bytes", 0)
         return None
@@ -519,18 +513,11 @@ def save_sorted_cache(db_prefix: str, k: int, keys, counts) -> None:
     arrays.append(np.ascontiguousarray(counts, "<u4"))
     n = arrays[-1].shape[0]
     offs, total = _sorted_layout(n, limbs)
-    tmp = f"{path}.{os.getpid()}.tmp"
     try:
         head = _SORTED_HEAD.pack(_SORTED_MAGIC, _SORTED_VERSION, k, limbs,
                                  0, n, *_kmc_sizes(db_prefix), *offs,
                                  total)
-        with open(tmp, "wb") as fh:
-            fh.write(head)
-            for off, a in zip((*offs[:limbs], offs[2]), arrays):
-                fh.seek(off)
-                fh.write(a)
-            fh.truncate(total)  # with n = 0, pads the header out
-        os.replace(tmp, path)
+        rawfile.write(path, head, (*offs[:limbs], offs[2]), total, arrays)
         count("sidecar_built", 1)
     except OSError as e:
         Logger.warning(_CLASS, f"Could not cache sorted DB at {path}: {e}")

@@ -220,6 +220,7 @@ def test_get_variations_spans_and_counters(tmp_path, rng, monkeypatch):
     for key in ("refindex_built", "plan_built", "sidecar_built"):
         assert (cold[key], warm[key]) == (1, 0), key
     assert cold["sidecar_bytes"] == 0 < warm["sidecar_bytes"]
+    assert cold["refindex_bytes"] == 0 < warm["refindex_bytes"]
     assert "refindex_build" in cold and "refindex_build" not in warm
     for stages, shapes, _ in (runs["cold"], runs["warm"]):
         for name in MAIN_THREAD + ("getVariations", "getVariations.self",
@@ -382,3 +383,32 @@ def test_mesh_statics_row_by_row(monkeypatch):
                 for t in (row.slot_maps, row.w_start, row.w_hi))
     assert snap["djoin_h2d_bytes"] == want
     st.reset()
+
+
+def test_refindex_counters(tmp_path, rng, monkeypatch):
+    """``refindex_built`` is 1 for the call that builds the reference
+    index and 0 for the one that maps its cache; ``refindex_bytes`` is 0
+    in the first and the index's key and r_idx bytes in the second."""
+    from kcftools_tpu_torch.cli import main
+    from kcftools_tpu_torch.engine.refindex import RefKmerIndex
+    from kcftools_tpu_torch.io.fasta import FastaIndex
+
+    fa, db = _reference(tmp_path, rng)
+    got = []
+    for tag in ("cold", "warm"):
+        path = tmp_path / f"{tag}.json"
+        with monkeypatch.context() as mp:
+            mp.setenv("KCFTOOLS_TORCH_DEVICE", "cpu")
+            mp.setenv("KCFTOOLS_STAGE_JSON", str(path))
+            assert main(["getVariations", "-r", fa, "-k", db, "-o",
+                         str(tmp_path / f"{tag}.kcf"), "-s", "s1", "-f",
+                         "window", "-w", "500", "--engine", "device"]) == 0
+        stages = json.loads(path.read_text())
+        got.append((stages["refindex_built"], stages["refindex_bytes"]))
+    st.reset()
+    ridx = RefKmerIndex.load_or_build(fa, FastaIndex(fa), 21)
+    st.reset()
+    served = ridx.kmers.nbytes + sum(
+        ridx.chrom_r_idx[n].nbytes for n in ("c1", "c2"))
+    assert served == 8 * ridx.n_kmers + 4 * (4000 + 2500 - 2 * 20)
+    assert got == [(1, 0), (0, served)]
