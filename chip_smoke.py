@@ -58,15 +58,22 @@ prints the kernels' record with no launch counts):
                 cell's shapes (ROUTE_KEYS keys in 2^16 partitions, 3 slabs
                 of 2^24 positions), timed there beside the bound (and, for
                 the slot maps, the sector floor of their gather) and the
-                host numpy they replaced (``host_ms``);
+                host numpy they replaced (``host_ms``). The sample tiling
+                (tile_sample: the join's table operand) on the same cases
+                with three count kinds and at the cell's two samples
+                (SAMPLE_KEYS keys; byte counts, then counts up to
+                2^32 - 1 at the first one's width), bit-exact there against
+                the plain version and the native host packer, timed beside
+                the bound and that packer (``host_ms``);
   4. slice    - synthesises a 40 Mbp reference in 4 chromosomes (N runs
                 sprinkled) and 3 KMC samples at 1% SNPs (the third with
                 counts > 255 up to 2^32 - 1, so both kernel variants
                 run), then runs ``getVariations -f window -w 5000
                 --engine device`` (k = 31) through the port's CLI, cold
                 and warm, with the kernel launch counters zeroed just
-                before each (one join launch and one scan launch per
-                sample, one launch of each routing wrapper a call);
+                before each (one join, one scan and one sample tiling
+                launch per sample, one launch of each routing wrapper a
+                call);
                 checks the KCF bytes against the
                 port's
                 ``--engine hybrid`` (host) output, the window count and
@@ -187,9 +194,12 @@ KERNELS = {
     "route_slabs": ("route_slabs", "launches", "csrc/route.cu",
                     "host numpy: the device join's slot maps "
                     "(slot_of_ord[r_idx]) and np.packbits"),
+    "tile_sample": ("tile_sample", "launches", "csrc/route.cu",
+                    "host native: kcf_pjoin_hist + kcf_pjoin_pack into an "
+                    "np.zeros buffer, the sample's table tiles"),
 }
 MAIN_PATH = ("pjoin_packed", "pjoin_u32", "gapscan_join", "route_reference",
-             "route_slabs")  # phase 4
+             "route_slabs", "tile_sample")  # phase 4
 ROUTE = ("route_reference", "route_slabs")  # once a call
 # the hash engine's shapes: a gene batch of ~2^22 positions (the
 # power-of-two bucket of 4-8 kb features), the mesh's -w 5000 window
@@ -203,6 +213,9 @@ HASH_SECTOR = 64  # a 48-byte bucket row always spans two 32-byte sectors
 # reference k-mers in 2^ROUTE_B quantile partitions, ROUTE_SLABS slabs of
 # DJOIN_SLAB positions, ROUTE_DEAD of them with no valid k-mer
 ROUTE_KEYS, ROUTE_B, ROUTE_SLABS, ROUTE_DEAD = 39_900_000, 16, 3, 0.05
+# a sample's table at the lettuce cell's shape: ~43.9 M keys, its two
+# samples' counts (bytes; up to 2^32 - 1), the second at the first's width
+SAMPLE_KEYS, SAMPLE_TOPS = 43_900_000, (255, (1 << 32) - 1)
 
 
 def _wrapper(name):
@@ -211,7 +224,7 @@ def _wrapper(name):
     fn = KERNELS[name][0]
     if fn == "pjoin_join":
         return pjoin.pjoin_join
-    if fn.startswith("route"):
+    if fn.startswith(("route", "tile")):
         return getattr(route, fn)
     return getattr(hashscan if fn.startswith("hash") else gapscan, fn)
 
@@ -1046,14 +1059,15 @@ def route_operands(dev, seed):
 def route_bytes(n, P, Tq, r_idx):
     """(route_reference's bytes, route_slabs' bytes, route_slabs' sector
     floor): each kernel reads its operands once and writes its outputs
-    once. route_reference: the starts launch reads the keys and writes
-    start, the width launch reads start, the tiles launch reads the keys
-    and start and writes the (P, Tq) tiles whole and the slot of each key.
+    once. route_reference: the starts launch writes start (its binary
+    searches read P log2 n keys, not counted, as in ``sample_bytes``), the
+    maxima launch reads start, the tiles launch reads the keys and start
+    and writes the (P, Tq) tiles whole and the slot of each key.
     route_slabs: r_idx read, a 4-byte slot gathered a live position (32
     bytes, a sector, in the floor), the slot maps and valid bitmaps
     written."""
     start = 8 * (P + 1)
-    ref = 8 * n + 3 * start + 8 * n + 8 * P * Tq + 4 * n
+    ref = 3 * start + 8 * n + 8 * P * Tq + 4 * n
     pos = r_idx.numel()
     live = int((r_idx >= 0).sum())
     base = 4 * pos + 4 * pos + pos // 8
@@ -1105,10 +1119,11 @@ def check_route(dev, seed):
     Tq = qh.shape[1]
     ref_bytes, slab_bytes, slab_floor = route_bytes(n, P, Tq, r_idx)
     start = torch.empty(P + 1, dtype=torch.int64, device=dev)
-    width = torch.empty(1, dtype=torch.int64, device=dev)
+    maxima = torch.empty(2, dtype=torch.int64, device=dev)
 
     def entries():
-        _kernels.launch("kcf_route_starts", keys, n, K, b, start, width)
+        _kernels.launch("kcf_route_starts", keys, n, None, K, b, start,
+                        maxima)
         _kernels.launch("kcf_route_tiles", keys, n, K, b, start, Tq, qh, ql,
                         slot)
 
@@ -1143,9 +1158,138 @@ def check_route(dev, seed):
         log(f"{name}: exact on {n_edge} edge cases and at {shape}; "
             f"{json.dumps(row)}")
         rows[name] = row
-    del keys, r_idx, qh, ql, slot, start, width
+    del keys, r_idx, qh, ql, slot, start, maxima
     torch.cuda.empty_cache()
     return rows
+
+
+def _sample_edges(dev):
+    """The sample tiling kernels bit-exact against the plain version (on
+    the CPU) on the cases of tests/torch_route_cases.py; returns how
+    many."""
+    from kcftools_tpu_torch.ops import route as rt
+    from tests.torch_route_cases import CASES, COUNTS, KS, sample_case
+
+    n = 0
+    for k in KS:
+        for case in CASES:
+            for counts in COUNTS:
+                keys, b, c = sample_case(case, k, counts, seed=k)
+                kt = torch.from_numpy(keys.view(np.int64))
+                ct = torch.from_numpy(c.view(np.int32))
+                got = rt.tile_sample(kt.to(dev), ct.to(dev), k, b)
+                want = rt.tile_sample_ref(kt, ct, k, b)
+                if got[1:] != want[1:] or not torch.equal(got[0].cpu(),
+                                                          want[0]):
+                    fail(f"tile_sample k={k} {case} {counts}: the kernels "
+                         "differ from the plain version")
+                n += 1
+    return n
+
+
+def sample_operands(dev, seed, top):
+    """A sample's sorted unique int64 keys of about the canonical k-mer
+    distribution (SAMPLE_KEYS drawn) and int32 counts (uint32 bits) in
+    1..top, ``top`` among them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    draws = [torch.randint(0, 1 << 62, (SAMPLE_KEYS,), generator=g,
+                           device=dev) for _ in range(2)]
+    keys = torch.unique(torch.minimum(*draws))
+    del draws
+    counts = torch.randint(1, top + 1, keys.shape, generator=g, device=dev)
+    counts[keys.shape[0] // 2] = top
+    return keys, _i32_bits(counts)
+
+
+def sample_bytes(n, P, buf_bytes):
+    """tile_sample's bytes: the keys and counts read once, the buffer
+    written once, and the partition starts written by the search launch
+    and read by the maxima and tiles launches."""
+    return 12 * n + buf_bytes + 3 * 8 * (P + 1)
+
+
+def _host_pack_ms(keys, counts, b, tile):
+    """The host pack the kernels replaced on the main path, ms (the
+    native histogram, the buffer's np.zeros and the native pack, from
+    host memory: ``engine/device_join.py::pack_tiles_host``, the mesh's),
+    and its (buf, Tt, packed)."""
+    from kcftools_tpu_torch.engine.device_join import pack_tiles_host
+    from kcftools_tpu_torch.native import get_lib
+
+    if get_lib() is None:
+        fail("the native host packer did not build")
+    t0 = time.perf_counter()
+    got = pack_tiles_host(keys, counts, K, b, tile)
+    return (time.perf_counter() - t0) * 1e3, got
+
+
+def check_sample_tiles(dev, seed):
+    """The sample tiling kernels bit-exact against the plain version on
+    the edge cases, and at the lettuce cell's two samples (SAMPLE_KEYS
+    keys in 2^ROUTE_B partitions; byte counts, then counts up to
+    2^32 - 1 at the first sample's width) against the plain version on
+    the card and the native host packer, then timed there: the wrapper
+    call's ms (its two numbers read back included), device_ms (the two
+    entry points captured with the width found), the plain version on
+    the card, and the host pack they replaced (``host_ms``), beside the
+    bound. The first sample's row holds the second's as ``u32``."""
+    from kcftools_tpu_torch.ops import _kernels
+    from kcftools_tpu_torch.ops import route as rt
+
+    n_edge = _sample_edges(dev)
+    b, P = ROUTE_B, 1 << ROUTE_B
+    rows, tile = [], None
+    for i, top in enumerate(SAMPLE_TOPS):
+        keys, counts = sample_operands(dev, seed + 21 + i, top)
+        n = keys.shape[0]
+        buf, Tt, packed = rt.tile_sample(keys, counts, K, b, tile)
+        want = rt.tile_sample_ref(keys, counts, K, b, tile)
+        torch.cuda.synchronize()
+        if (Tt, packed) != want[1:] or not torch.equal(buf, want[0]):
+            fail(f"tile_sample at the cell's shape (counts <= {top}): the "
+                 "kernels differ from the plain version")
+        del want
+        host_ms, host = _host_pack_ms(
+            keys.cpu().numpy().view(np.uint64),
+            counts.cpu().numpy().view(np.uint32), b, tile)
+        if host[1:] != (Tt, packed) or not np.array_equal(
+                buf.cpu().numpy().view(np.uint32), host[0]):
+            fail(f"tile_sample at the cell's shape (counts <= {top}): the "
+                 "kernels differ from the native host packer")
+        del host
+        start = torch.empty(P + 1, dtype=torch.int64, device=dev)
+        maxima = torch.empty(2, dtype=torch.int64, device=dev)
+
+        def entries():
+            _kernels.launch("kcf_route_starts", keys, n, counts, K, b,
+                            start, maxima)
+            _kernels.launch("kcf_sample_tiles", keys, counts, start, K, b,
+                            Tt, int(packed), buf)
+
+        def fn():
+            return rt.tile_sample(keys, counts, K, b, tile)
+
+        for _ in range(3):
+            fn()
+            entries()
+        nbytes = sample_bytes(n, P, buf.nbytes)
+        row = {"max_abs_err": 0, "library_ms": None, "bound_bytes": nbytes,
+               "ms": _event_ms(fn, 20), "device_ms": _device_ms(entries),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes",
+               "plain_ms": _event_ms(
+                   lambda: rt.tile_sample_ref(keys, counts, K, b, tile), 1),
+               "host_ms": host_ms, "keys": n, "Tt": Tt, "packed": packed,
+               "buf_bytes": buf.nbytes}
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        log(f"tile_sample (counts <= {top}): exact on {n_edge} edge cases, "
+            f"against the plain version and the native packer at {n} keys, "
+            f"P={P}, Tt={Tt}; {json.dumps(row)}")
+        rows.append(row)
+        tile = Tt
+        del keys, counts, buf, start, maxima
+        torch.cuda.empty_cache()
+    return {"tile_sample": {**rows[0], "u32": rows[1]}}
 
 
 # -- phase 4: synthetic data --------------------------------------------
@@ -1322,6 +1466,9 @@ def run_slice(root, ref, dbs, chrom_len):
         if run_launches["pjoin_packed"] + run_launches["pjoin_u32"] != len(dbs):
             fail(f"{run_launches} join launches for {len(dbs)} samples, "
                  "want one per sample")
+        if run_launches["tile_sample"] != len(dbs):
+            fail(f"{run_launches['tile_sample']} sample tiling launches for "
+                 f"{len(dbs)} samples, want one per sample")
         if run_launches["gapscan_join"] != len(dbs):
             fail(f"{run_launches['gapscan_join']} scan launches for "
                  f"{len(dbs)} samples of {n_slabs} slabs, want one per "
@@ -1798,6 +1945,7 @@ def main():
     rows.update(check_scan(dev, args.seed))
     rows.update(check_hash(dev, args.seed))
     rows.update(check_route(dev, args.seed))
+    rows.update(check_sample_tiles(dev, args.seed))
 
     launches = (dict.fromkeys(KERNELS) if args.kernels_only
                 else run_paths(args, smi))

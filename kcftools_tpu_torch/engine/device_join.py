@@ -11,10 +11,13 @@ engine behind ``getVariations --engine device`` at k <= 32.
       each slab gets its int32 slot map position -> flattened routed
       slot and its packed valid bitmap; the keys are then freed.
   per SAMPLE:
-    - the sorted (keys, counts) are quantile-sliced into one flat
-      [hi | lo | counts] buffer by the shared native packer (counts
-      byte-packed 4 per word when all are <= 255);
-    - ONE host-to-device copy of that buffer, ONE ``pjoin_join`` launch;
+    - the sorted (keys, counts), as the mapped sidecar holds them, are
+      copied to the device;
+    - on the device (ops/route.py::tile_sample, the kernels
+      csrc/route.cu on CUDA): they are quantile-sliced into one flat
+      [hi | lo | counts] buffer, the native packer's (counts byte-packed
+      4 per word when all are <= 255), and freed;
+    - ONE ``pjoin_join`` launch;
     - ONE ``slabs_scan_join`` launch over every slab (ops/gapscan.py,
       the kernel csrc/gapscan.cu; the slabs' statics are stacked): gather
       through each slab's slot map, presence test, the gap-run
@@ -32,20 +35,23 @@ exactly. The slab size keeps its environment names
 default, which still has to be re-measured on the H100.
 
 ``MeshJoinScorer`` runs the same engine over a (data, table) mesh
-(parallel/mesh.py): one join per table shard, the routed counts
-gathered in table order, each data row scanning its own slabs in one
-launch.
+(parallel/mesh.py): the sample's buffer packed on the host by the
+native packer, one join per table shard, the routed counts gathered in
+table order, each data row scanning its own slabs in one launch.
 
 With ``KCFTOOLS_STAGE_JSON`` set, the per-sample phases are timed as
-the stages djoin_pack, djoin_upload, djoin_join, djoin_scan and
-djoin_fetch, and the per-run set-up as djoin_setup (children
-djoin_statics: the slab layout on the host and the slot-map launch;
-djoin_static_upload: the copies of the keys, r_idx and window bounds;
-djoin_route: the query tiles' launches), with a device synchronisation
-at the end of each phase; unset, nothing synchronises before
+the stages djoin_upload, djoin_pack (on the device; on the host in the
+mesh, before its upload), djoin_join, djoin_scan and djoin_fetch, and
+the per-run set-up as djoin_setup (children djoin_statics: the slab
+layout on the host and the slot-map launch; djoin_static_upload: the
+copies of the keys, r_idx and window bounds; djoin_route: the query
+tiles' launches), with a device synchronisation at the end of each
+phase; unset, nothing synchronises before
 ``collect``. The counter djoin_h2d_bytes adds up every byte the join
 copies to its devices; djoin_route_on_card adds 1 for a set-up routed by
-the kernels, 0 for one routed by the plain torch version (a CPU device).
+the kernels, 0 for one routed by the plain torch version (a CPU device);
+djoin_pack_on_card adds 1 for a sample tiled by the kernels, 0 for one
+tiled by the plain torch version.
 """
 
 import ctypes
@@ -63,10 +69,14 @@ from ..ops.pjoin import (
     pack_planar,
     pjoin_join,
     quantile_partition_ids,
-    round_up,
     tile_sorted,
 )
-from ..ops.route import route_reference, route_slabs
+from ..ops.route import (
+    route_reference,
+    route_slabs,
+    sample_tile,
+    tile_sample,
+)
 from ..parallel.mesh import all_gather_columns
 from ..torchinit import phase
 from ..utils.stagetimer import count, stage
@@ -129,17 +139,63 @@ def _h2d_rows(arrays, width, dtype, dev):
     return out
 
 
-def _ref_keys(refk):
-    """The sorted uint64 reference k-mers as an int64 CPU tensor of the
-    same bits. The keys are a read-only view of the mapped index file
-    where it was loaded; the tensor is only read (copied to the device,
-    or routed in place on a CPU device), so torch's warning that it
-    could write there is silenced for this call alone."""
-    keys = np.ascontiguousarray(refk, np.uint64).view(np.int64)
+def _as_tensor(a, unsigned, signed):
+    """A host array of ``unsigned`` values as a CPU tensor of the
+    ``signed`` numpy type of the same width and bits: sorted keys
+    (uint64 -> int64) or counts (uint32 -> int32). The array is a
+    read-only view of a mapped file where it was loaded (the reference
+    index, the sample's sidecar); the tensor is only read (copied to the
+    device, or routed and tiled in place on a CPU device), so torch's
+    warning that it could write there is silenced for this call alone."""
+    a = np.ascontiguousarray(a, unsigned).view(signed)
     with warnings.catch_warnings():
         warnings.filterwarnings(
             "ignore", "The given NumPy array is not writable")
-        return torch.from_numpy(keys)
+        return torch.from_numpy(a)
+
+
+def pack_tiles_host(db_keys, db_counts, k, b, tile=None):
+    """``tile_sample`` on the host, for the mesh: (buf, Tt, packed), buf
+    the flat uint32 [hi | lo | counts] buffer of a sorted table in
+    (2^b, Tt) planes, Tt = ``sample_tile`` of its largest partition and
+    the width ``tile`` an earlier sample took, counts <= 255 byte-packed
+    4 per word in the planar layout. The native packer does it where the
+    library is built (its partition function clamps to P - 1, as
+    ``quantile_partition_ids`` does), else ``tile_sorted`` and
+    ``pack_planar``."""
+    db_keys = np.ascontiguousarray(db_keys, np.uint64)
+    db_counts = np.ascontiguousarray(db_counts, np.uint32)
+    n, P = db_keys.shape[0], 1 << b
+    lib = get_lib()
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    if lib is not None:
+        per = np.zeros(P, np.int64)
+        lib.kcf_pjoin_hist(
+            db_keys.ctypes.data_as(u64p), ctypes.c_int64(n),
+            ctypes.c_int(k), ctypes.c_int(b), per.ctypes.data_as(i64p),
+        )
+    else:
+        per = np.bincount(quantile_partition_ids(db_keys, b, k),
+                          minlength=P)
+    Tt = sample_tile(int(per.max()), tile)
+    packed = bool(db_counts.max(initial=0) <= 0xFF)
+    if lib is None:
+        th, tl, tc, _, _ = tile_sorted(db_keys, k, b, tile=Tt,
+                                       counts=db_counts)
+        planes = (th, tl, pack_planar(tc) if packed else tc)
+        return np.concatenate([a.ravel() for a in planes]), Tt, packed
+    nt = P * Tt
+    buf = np.zeros(2 * nt + (nt // 4 if packed else nt), np.uint32)
+    lib.kcf_pjoin_pack(
+        db_keys.ctypes.data_as(u64p),
+        db_counts.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        ctypes.c_int64(n), ctypes.c_int(k), ctypes.c_int(b),
+        ctypes.c_int64(Tt), ctypes.c_int(int(packed)),
+        per.ctypes.data_as(i64p),
+        buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+    )
+    return buf, Tt, packed
 
 
 class DeviceJoinScorer:
@@ -166,7 +222,7 @@ class DeviceJoinScorer:
         self._refk = refidx.kmers  # sorted unique uint64
         self._tile_target = int(tile_target)
         self._statics = None
-        self._sample_tile = None  # sticky Tt across samples
+        self._sample_tile = None  # sticky Tt across samples (sample_tile)
         self._handles = {}  # key -> (S, 6, win_pad) device tensor
         self._results = {}
 
@@ -194,7 +250,8 @@ class DeviceJoinScorer:
             with stage("djoin_statics"):
                 self._layout.finalize()
             with phase("djoin_static_upload", dev):
-                keys = _h2d(_ref_keys(self._refk), dev)
+                keys = _h2d(_as_tensor(self._refk, np.uint64, np.int64),
+                            dev)
                 statics = _Slabs(self._layout.slabs, self._layout.pos_pad,
                                  self._layout.win_pad, dev)
             with phase("djoin_route", dev):
@@ -225,66 +282,23 @@ class DeviceJoinScorer:
 
     # -- per-sample ------------------------------------------------------
 
-    def _pack_tiles(self, db_keys, db_counts):
-        """One flat uint32 buffer [hi | lo | counts] in the sample's
-        sticky (P, Tt) tiling. Counts <= 255 byte-pack 4 per word in
-        the planar layout. The native packer does it where the library
-        is built (its partition function clamps to P-1, as
-        ``quantile_partition_ids`` does), else ``tile_sorted`` and
-        ``pack_planar``."""
-        db_keys = np.ascontiguousarray(db_keys, np.uint64)
-        n = db_keys.shape[0]
-        b = self.P.bit_length() - 1
-        lib = get_lib()
-        u64p = ctypes.POINTER(ctypes.c_uint64)
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        if lib is not None:
-            per = np.zeros(self.P, np.int64)
-            lib.kcf_pjoin_hist(
-                db_keys.ctypes.data_as(u64p), ctypes.c_int64(n),
-                ctypes.c_int(self.k), ctypes.c_int(b),
-                per.ctypes.data_as(i64p),
-            )
-        else:
-            per = np.bincount(quantile_partition_ids(db_keys, b, self.k),
-                              minlength=self.P)
-        need = int(per.max()) if n else 1
-        if self._sample_tile is None or need > self._sample_tile:
-            # sticky tile with headroom so later samples of similar size
-            # keep one shape
-            self._sample_tile = round_up(need + 64, 128)
-        Tt = self._sample_tile
-        packed = bool(db_counts.max(initial=0) <= 0xFF)
-        if lib is None:
-            th, tl, tc, _, _ = tile_sorted(db_keys, self.k, b, tile=Tt,
-                                           counts=db_counts)
-            planes = (th, tl, pack_planar(tc) if packed else tc)
-            return np.concatenate([a.ravel() for a in planes]), Tt, packed
-        nt = self.P * Tt
-        words = nt // 4 if packed else nt
-        buf = np.zeros(2 * nt + words, np.uint32)
-        lib.kcf_pjoin_pack(
-            db_keys.ctypes.data_as(u64p),
-            db_counts.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-            ctypes.c_int64(n), ctypes.c_int(self.k),
-            ctypes.c_int(b), ctypes.c_int64(Tt),
-            ctypes.c_int(int(packed)),
-            per.ctypes.data_as(i64p),
-            buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-        )
-        return buf, Tt, packed
-
     def submit(self, key, ref_keys, db_keys, db_counts):
-        """Ship one sample's sorted table, join it and scan every slab.
+        """Ship one sample's sorted table, tile it on the device, join it
+        and scan every slab.
         ``ref_keys`` is accepted for interface compatibility with the
         dprefix engine (the reference keys were given at construction)."""
         self._finalize()
         dev = self.device
-        with phase("djoin_pack", dev):
-            db_counts = np.ascontiguousarray(db_counts, np.uint32)
-            buf, Tt, packed = self._pack_tiles(db_keys, db_counts)
         with phase("djoin_upload", dev):
-            tiles = _h2d(as_i32(buf), dev)  # ONE host-to-device copy
+            keys = _h2d(_as_tensor(db_keys, np.uint64, np.int64), dev)
+            counts = _h2d(_as_tensor(db_counts, np.uint32, np.int32), dev)
+        with phase("djoin_pack", dev):
+            tiles, Tt, packed = tile_sample(
+                keys, counts, self.k, self.P.bit_length() - 1,
+                self._sample_tile)
+            del keys, counts
+            self._sample_tile = Tt
+            count("djoin_pack_on_card", int(dev.type == "cuda"))
         with phase("djoin_join", dev):
             nt = self.P * Tt
             th = tiles[:nt].view(self.P, Tt)
@@ -391,7 +405,8 @@ class MeshJoinScorer(DeviceJoinScorer):
             with stage("djoin_statics"):
                 self._layout.finalize(n_parts=self.d_axis)
             with phase("djoin_static_upload", dev):
-                keys = _h2d(_ref_keys(self._refk), dev)
+                keys = _h2d(_as_tensor(self._refk, np.uint64, np.int64),
+                            dev)
             with phase("djoin_route", *slots):
                 qh, ql, slot_of_ord = self._route(keys, self.t_axis)
                 del keys
@@ -421,8 +436,10 @@ class MeshJoinScorer(DeviceJoinScorer):
         self._finalize()
         slots = self.mesh.local_slots()
         with phase("djoin_pack"):
-            db_counts = np.ascontiguousarray(db_counts, np.uint32)
-            buf, Tt, packed = self._pack_tiles(db_keys, db_counts)
+            buf, Tt, packed = pack_tiles_host(
+                db_keys, db_counts, self.k, self.P.bit_length() - 1,
+                self._sample_tile)
+            self._sample_tile = Tt
         nt = self.P * Tt
         pt = self.P // self.t_axis
         planes = (

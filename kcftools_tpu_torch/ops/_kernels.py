@@ -106,9 +106,10 @@ _ENTRIES = {
                                      _P]),
     "kcf_hash_probe": ("hashscan", [*[_P] * 4, *[_LL] * 6, _I, _I, _P]),
     "kcf_hash_scan": ("hashscan", [*[_P] * 5, _LL, _LL, _LL, _I, _LL, _P]),
-    "kcf_route_starts": ("route", [_P, _LL, _I, _I, _P, _P, _P]),
+    "kcf_route_starts": ("route", [_P, _LL, _P, _I, _I, _P, _P, _P]),
     "kcf_route_tiles": ("route", [_P, _LL, _I, _I, _P, _LL, _P, _P, _P, _P]),
     "kcf_route_slabs": ("route", [_P, _LL, *[_P] * 4]),
+    "kcf_sample_tiles": ("route", [_P, _P, _P, _I, _I, _LL, _I, _P, _P]),
 }
 
 

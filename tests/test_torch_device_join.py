@@ -250,10 +250,11 @@ def test_device_join_top_partition_key():
 @pytest.mark.parametrize("k", [31, 32])
 @pytest.mark.parametrize("packed", [False, True], ids=["u32", "packed"])
 def test_native_pjoin_pack_clamps_top_keys(monkeypatch, k, packed):
-    """The native kcf_pjoin_hist / kcf_pjoin_pack put keys whose top 32
-    bits are all set (at k = 32 the palindrome T^16A^16 among them) into
-    the last partition, as ``quantile_partition_ids`` does: histogram and
-    upload buffer equal the numpy path's."""
+    """The native kcf_pjoin_hist / kcf_pjoin_pack (the mesh's host pack)
+    put keys whose top 32 bits are all set (at k = 32 the palindrome
+    T^16A^16 among them) into the last partition, as
+    ``quantile_partition_ids`` does: histogram and upload buffer equal the
+    numpy path's."""
     from kcftools_tpu_torch.engine import device_join as tdj
     from kcftools_tpu_torch.native import get_lib
     from kcftools_tpu_torch.ops.pjoin import (
@@ -283,11 +284,9 @@ def test_native_pjoin_pack_clamps_top_keys(monkeypatch, k, packed):
         per, np.bincount(quantile_partition_ids(keys, b, k), minlength=1 << b))
     bufs = []
     for use_lib in (True, False):
-        sc = DeviceJoinScorer.__new__(DeviceJoinScorer)
-        sc.P, sc.k, sc._sample_tile = 1 << b, k, None
         monkeypatch.setattr(tdj, "get_lib",
                             (lambda: lib) if use_lib else (lambda: None))
-        bufs.append(sc._pack_tiles(keys, counts))
+        bufs.append(tdj.pack_tiles_host(keys, counts, k, b))
     (got, tt, pk), (want, tt2, pk2) = bufs
     assert (tt, pk) == (tt2, pk2) and pk == packed
     np.testing.assert_array_equal(got, want)

@@ -19,7 +19,10 @@ from kcftools_tpu_torch.engine.hashtable import build_table
 from kcftools_tpu_torch.engine.windows import pad_batch_varlen, tiling_windows
 from kcftools_tpu_torch.engine import device_prefix as tdp
 from kcftools_tpu_torch.engine import pipeline as tpl
-from kcftools_tpu_torch.engine.device_join import DeviceJoinScorer
+from kcftools_tpu_torch.engine.device_join import (
+    DeviceJoinScorer,
+    pack_tiles_host,
+)
 from kcftools_tpu_torch.engine.hashtable import build_table_sharded
 from kcftools_tpu_torch.ops import gapscan as tgs
 from kcftools_tpu_torch.ops import hashscan as ths
@@ -901,9 +904,10 @@ def test_hash_scan_two_streams(cuda_device, no_plain_hash):
 
 @pytest.fixture
 def no_plain_route(monkeypatch):
-    """A CUDA tensor must never reach the plain routing: the wrappers find
-    both plain versions raising. Returns the real ones by name."""
-    names = ("route_reference_ref", "route_slabs_ref")
+    """A CUDA tensor must never reach the plain routing or tiling: the
+    wrappers find the plain versions raising. Returns the real ones by
+    name."""
+    names = ("route_reference_ref", "route_slabs_ref", "tile_sample_ref")
     real = {name: getattr(trt, name) for name in names}
 
     def boom(*_a, **_k):
@@ -966,10 +970,89 @@ def test_route_kernels_cell_shape(cuda_device, no_plain_route):
     assert qh.shape[0] == 1 << 16 and qh.shape[1] >= keys.shape[0] >> 16
 
 
+def _native_equal(buf, keys, counts, k, b, tile):
+    """The card's (buf, Tt, packed) equals the native host packer's,
+    which picks Tt and the count layout itself after a sample that took
+    the width ``tile``."""
+    from kcftools_tpu_torch.native import get_lib
+
+    assert get_lib() is not None
+    host = pack_tiles_host(keys, counts, k, b, tile)
+    assert host[1:] == buf[1:]
+    np.testing.assert_array_equal(buf[0].cpu().numpy().view(np.uint32),
+                                  host[0])
+
+
+def _tile_exact(plain, keys, counts, k, b, tile, plain_dev):
+    """``tile_sample`` on the card, one launch, bit-exact against the
+    plain version run on ``plain_dev``; returns (buf, Tt, packed)."""
+    dev = torch.device("cuda:0")
+    before = trt.tile_sample.launches
+    got = trt.tile_sample(keys.to(dev), counts.to(dev), k, b, tile)
+    torch.cuda.synchronize()
+    assert trt.tile_sample.launches == before + 1
+    want = plain["tile_sample_ref"](keys.to(plain_dev), counts.to(plain_dev),
+                                    k, b, tile)
+    assert got[1:] == want[1:]
+    assert got[0].shape == want[0].shape
+    assert torch.equal(got[0].to(plain_dev), want[0])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts", trc.COUNTS)
+@pytest.mark.parametrize("case", trc.CASES)
+@pytest.mark.parametrize("k", trc.KS)
+def test_sample_tile_kernels_match_plain(cuda_device, no_plain_route, k,
+                                         case, counts):
+    """The sample tiling kernels on the edge cases (bit 63 at k = 32, the
+    top-32 keys clamped to P - 1, empty partitions, one partition, one
+    key and none; byte counts, one 256, counts up to 2^32 - 1): equal to
+    the plain version on the CPU and to the native packer; then a
+    smaller sample of the same case keeps the width."""
+    keys, b, c = trc.sample_case(case, k, counts, seed=k)
+    got = _tile_exact(
+        no_plain_route, torch.from_numpy(keys.view(np.int64)),
+        tpj.as_i32(c), k, b, None, torch.device("cpu"))
+    _native_equal(got, keys, c, k, b, None)
+    fewer = np.ascontiguousarray(keys[::3])
+    _tile_exact(no_plain_route, torch.from_numpy(fewer.view(np.int64)),
+                tpj.as_i32(c[::3]), k, b, got[1], torch.device("cpu"))
+
+
+@pytest.mark.cuda
+def test_sample_tile_kernels_cell_shape(cuda_device, no_plain_route):
+    """The lettuce cell's samples: ~43.9 M canonical-like k = 31 keys in
+    2^16 partitions, byte counts, then a second sample with counts up to
+    2^32 - 1 at the first one's width; equal to the plain version on the
+    card and to the native packer on the host."""
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    n = 44_000_000
+    tile = None
+    for top in (255, (1 << 32) - 1):
+        draws = [torch.randint(0, 1 << 62, (n,), generator=g,
+                               device=cuda_device) for _ in range(2)]
+        keys = torch.unique(torch.minimum(*draws))  # sorted
+        del draws
+        counts = torch.randint(1, top + 1, keys.shape, generator=g,
+                               device=cuda_device, dtype=torch.int64)
+        counts[7] = top
+        counts = (counts - ((counts >> 31) << 32)).to(torch.int32)
+        got = _tile_exact(no_plain_route, keys, counts, 31, 16, tile,
+                          cuda_device)
+        assert got[2] == (top == 255) and (tile is None or got[1] == tile)
+        _native_equal(got, keys.cpu().numpy().view(np.uint64),
+                      counts.cpu().numpy().view(np.uint32), 31, 16, tile)
+        tile = got[1]
+        del keys, counts, got
+        torch.cuda.empty_cache()
+
+
 @pytest.mark.cuda
 def test_device_join_routes_on_card(cuda_device, monkeypatch, tmp_path):
-    """DeviceJoinScorer on cuda routes with the kernels: one launch of
-    each, djoin_route_on_card 1, the same bytes uploaded, query tiles and
+    """DeviceJoinScorer on cuda routes and tiles its sample with the
+    kernels: one launch of each, djoin_route_on_card and
+    djoin_pack_on_card 1, the same bytes uploaded, query tiles and
     slab statics equal to the CPU scorer's (the plain version), and the
     same per-window statistics."""
     from kcftools_tpu_torch.utils import stagetimer as st
@@ -984,18 +1067,22 @@ def test_device_join_routes_on_card(cuda_device, monkeypatch, tmp_path):
     for dev in (torch.device("cpu"), cuda_device):
         sc = DeviceJoinScorer(_Ref(refk), k, dev)
         sc.add_chrom("c", r_idx, starts, ends)
-        before = (trt.route_reference.launches, trt.route_slabs.launches)
+        before = (trt.route_reference.launches, trt.route_slabs.launches,
+                  trt.tile_sample.launches)
         st.reset()
         sc.submit(0, refk, db, dbc)
         snaps[dev.type] = st.snapshot()
         launched = (trt.route_reference.launches - before[0],
-                    trt.route_slabs.launches - before[1])
-        assert launched == ((1, 1) if dev.type == "cuda" else (0, 0))
+                    trt.route_slabs.launches - before[1],
+                    trt.tile_sample.launches - before[2])
+        assert launched == ((1, 1, 1) if dev.type == "cuda" else (0, 0, 0))
         out[dev.type] = sc.collect(0)["c"]
         scorers[dev.type] = sc
     st.reset()
     assert snaps["cpu"]["djoin_route_on_card"] == 0
     assert snaps["cuda"]["djoin_route_on_card"] == 1
+    assert snaps["cpu"]["djoin_pack_on_card"] == 0
+    assert snaps["cuda"]["djoin_pack_on_card"] == 1
     assert snaps["cuda"]["djoin_h2d_bytes"] == snaps["cpu"]["djoin_h2d_bytes"]
     cpu, gpu = scorers["cpu"], scorers["cuda"]
     assert len(gpu._statics) == len(cpu._statics) > 1

@@ -150,25 +150,24 @@ def _reference(tmp_path, rng):
 
 class _Shapes:
     """The device join's shapes of a call, recorded by wrapping the
-    scorer."""
+    scorer and its sample tiling."""
 
     def __init__(self, monkeypatch):
         self.scorer = None
-        self.tiles = []
-        fin, pack = tdj.DeviceJoinScorer._finalize, \
-            tdj.DeviceJoinScorer._pack_tiles
+        self.samples = []
+        fin, tile = tdj.DeviceJoinScorer._finalize, tdj.tile_sample
 
         def finalize(scorer):
             fin(scorer)
             self.scorer = scorer
 
-        def pack_tiles(scorer, *a):
-            buf, Tt, packed = pack(scorer, *a)
-            self.tiles.append((buf.nbytes, Tt, packed))
+        def tile_sample(keys, counts, *a):
+            buf, Tt, packed = tile(keys, counts, *a)
+            self.samples.append((keys.shape[0], buf.nbytes, Tt, packed))
             return buf, Tt, packed
 
         monkeypatch.setattr(tdj.DeviceJoinScorer, "_finalize", finalize)
-        monkeypatch.setattr(tdj.DeviceJoinScorer, "_pack_tiles", pack_tiles)
+        monkeypatch.setattr(tdj, "tile_sample", tile_sample)
 
     def h2d_bytes(self):
         sc = self.scorer
@@ -179,9 +178,10 @@ class _Shapes:
         statics = (sc._refk.shape[0] * 8 + S * pos_pad * 4
                    + 2 * S * win_pad * 8)
         sample = 0
-        for nbytes, Tt, packed in self.tiles:
+        for n, nbytes, Tt, packed in self.samples:
+            # the sorted keys and counts; the tiles are built on the device
+            sample += 12 * n
             words = sc.P * Tt // 4 if packed else sc.P * Tt
-            sample += (2 * sc.P * Tt + words) * 4
             assert nbytes == (2 * sc.P * Tt + words) * 4
         return statics, sample
 
@@ -231,6 +231,7 @@ def test_get_variations_spans_and_counters(tmp_path, rng, monkeypatch):
         statics, sample = shapes.h2d_bytes()
         assert stages["djoin_h2d_bytes"] == statics + sample
         assert stages["djoin_route_on_card"] == 0  # a CPU device
+        assert stages["djoin_pack_on_card"] == 0  # the plain version
         kids = sum(stages[n] for n in MAIN_THREAD)
         assert stages["getVariations.self"] == pytest.approx(
             stages["getVariations"] - kids, abs=2e-3)
@@ -383,6 +384,56 @@ def test_mesh_statics_row_by_row(monkeypatch):
                 for t in (row.slot_maps, row.w_start, row.w_hi))
     assert snap["djoin_h2d_bytes"] == want
     st.reset()
+
+
+def test_sample_pack_counter_and_upload(monkeypatch):
+    """Each sample of a CPU ``DeviceJoinScorer`` adds 0 to
+    ``djoin_pack_on_card`` (tiled by the plain version) and its sorted
+    keys and counts, 12 bytes a key, to ``djoin_h2d_bytes``, in the
+    stages ``djoin_upload`` then ``djoin_pack``; read-only arrays (a
+    mapped sidecar's) pass without a warning."""
+    import warnings
+
+    from kcftools_tpu_torch.engine.windows import tiling_windows
+
+    from .torch_route_cases import sample_case
+
+    monkeypatch.setenv("KCFTOOLS_STAGE_JSON", os.devnull)
+    k = 21
+    refk, _b, _c = sample_case("canonical", k, "u8", seed=2, n=5000)
+    rng = np.random.default_rng(3)
+    r = rng.integers(0, refk.shape[0], 8000).astype(np.int32)
+
+    class Ref:
+        kmers = refk
+
+    sc = tdj.DeviceJoinScorer(Ref(), k, "cpu", tile_target=64)
+    sc.add_chrom("c", r, *tiling_windows(8000 + k - 1, 1000, k))
+    sc._finalize()
+    order = []
+    phase = tdj.phase
+    monkeypatch.setattr(tdj, "phase",
+                        lambda n, *d: (order.append(n), phase(n, *d))[1])
+    for key, top in enumerate((255, (1 << 32) - 1)):
+        # half the reference's k-mers and as many others
+        other, _b, _c = sample_case("canonical", k, "u8", seed=key + 5,
+                                    n=2500)
+        keys = np.unique(np.concatenate([refk[key::2], other]))
+        c = rng.integers(1, top, keys.shape[0], endpoint=True,
+                         dtype=np.uint64).astype(np.uint32)
+        keys.flags.writeable = c.flags.writeable = False
+        st.reset()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            sc.submit(key, refk, keys, c)
+        snap = st.snapshot()
+        assert snap["djoin_pack_on_card"] == 0
+        assert snap["djoin_h2d_bytes"] == 12 * keys.shape[0]
+        assert "djoin_upload" in snap and "djoin_pack" in snap
+        assert sc.collect(key)["c"]["observed"].sum() > 0
+    st.reset()
+    assert [n for n in order if n in ("djoin_upload", "djoin_pack")] == [
+        "djoin_upload", "djoin_pack"] * 2
 
 
 def test_refindex_counters(tmp_path, rng, monkeypatch):

@@ -1,15 +1,18 @@
-"""Operands of the device join's reference routing
+"""Operands of the device join's reference routing and sample tiling
 (kcftools_tpu_torch/ops/route.py, the kernels csrc/route.cu): sorted
-unique reference k-mers with P = 2^b quantile partitions, and the
-stacked slabs' reference ordinals. The cases reach every path: keys of
+unique reference k-mers with P = 2^b quantile partitions, the stacked
+slabs' reference ordinals, and the same keys as a sample's sorted table
+with uint32 counts (``sample_case``). The cases reach every path: keys of
 the canonical distribution, a key with the top bit of its 2k bits set
 (bit 63 at k = 32), the key whose top 32 bits are all set (at k >= 16
 its raw partition id is P, clamped to P - 1), mostly empty partitions (and
 partitions skipped before the first and after the last key), every key
 in one partition (Tq far above the 128 granule), one key and no key;
-every case has one all-dead slab and one that is all live. numpy only:
-shared by the CPU tests (the plain version against ``tile_sorted``) and
-the card tests (the kernels against the plain version).
+every case has one all-dead slab and one that is all live; the counts
+are all <= 255 (byte-packed), the same with one 256 (not), or up to
+2^32 - 1. numpy only: shared by the CPU tests (the plain versions
+against ``tile_sorted``, ``pack_planar`` and the native packer) and the
+card tests (the kernels against the plain versions).
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ KS = (15, 21, 31, 32)
 CASES = ("canonical", "top_bit", "top32", "empty_parts", "one_part",
          "one_key", "no_keys")
 SLABS, SLAB_POS = 4, 4096  # positions a multiple of 32
+COUNTS = ("u8", "one_256", "u32")
 
 
 def _canonical(rng, n, k):
@@ -94,3 +98,23 @@ def host_slabs(r_idx, slot_of_ord):
     live = r_idx >= 0
     slot_maps[live] = slot_of_ord[r_idx[live]]
     return slot_maps, np.packbits(live, axis=1, bitorder="little")
+
+
+def sample_case(name, k, counts, seed=0, n=6000):
+    """(keys, b, counts): ``route_case``'s keys and partition bits as a
+    sample's sorted table, with uint32 counts: "u8" 1..255 (they
+    byte-pack), "one_256" the same but one 256 (they do not), "u32" up to
+    2^32 - 1, which is among them."""
+    keys, b, _r_idx = route_case(name, k, seed, n)
+    rng = np.random.default_rng(seed + 1)
+    m = keys.shape[0]
+    if counts == "u32":
+        c = rng.integers(1, 1 << 32, m, dtype=np.uint64).astype(np.uint32)
+        c[m // 3 : m // 3 + 1] = 0xFFFFFFFF
+    else:
+        c = rng.integers(1, 256, m).astype(np.uint32)
+        c[:1] = 255
+        if counts == "one_256" and m:
+            c[m // 2] = 256
+    return keys, b, c
+
