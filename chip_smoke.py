@@ -9,7 +9,8 @@ prints the kernels' record with no launch counts):
   1. device   - the card's name, and its name and power limit as
                 nvidia-smi reports them;
   2. build    - nvcc builds the port's kernels from csrc/ (pjoin.cu,
-                gapscan.cu, hashscan.cu and route.cu, all builds at once;
+                gapscan.cu, hashscan.cu and route.cu, and h2d.cu's staged
+                host-to-device copy, all builds at once;
                 their ptxas
                 registers and spills are printed), and g++ the port's
                 native host library into kcftools_tpu_torch/_build - timed;
@@ -64,7 +65,15 @@ prints the kernels' record with no launch counts):
                 (SAMPLE_KEYS keys; byte counts, then counts up to
                 2^32 - 1 at the first one's width), bit-exact there against
                 the plain version and the native host packer, timed beside
-                the bound and that packer (``host_ms``);
+                the bound and that packer (``host_ms``). Transfers
+                (``check_transfers``): a 526,770,780-byte source (the
+                cell's sample upload) from warm heap memory and from a
+                fresh read-only map of a raw file, copied to the card by
+                a pageable ``.to()``, by ``h2d_staged`` (the device
+                join's pinned staging; every staged copy bit-exact) at
+                its constants and over a sweep of chunk sizes and
+                depths, and once whole from pinned memory (the link's
+                ceiling), in GB/s (the record's ``transfers``);
   4. slice    - synthesises a 40 Mbp reference in 4 chromosomes (N runs
                 sprinkled) and 3 KMC samples at 1% SNPs (the third with
                 counts > 255 up to 2^32 - 1, so both kernel variants
@@ -216,6 +225,13 @@ ROUTE_KEYS, ROUTE_B, ROUTE_SLABS, ROUTE_DEAD = 39_900_000, 16, 3, 0.05
 # a sample's table at the lettuce cell's shape: ~43.9 M keys, its two
 # samples' counts (bytes; up to 2^32 - 1), the second at the first's width
 SAMPLE_KEYS, SAMPLE_TOPS = 43_900_000, (255, (1 << 32) - 1)
+# the device join's host-to-device copies: a source the size of the
+# lettuce cell's sample upload (its sorted keys and counts, 12 B a key),
+# and the staging chunk sizes and depths that the sweep tries
+XFER_BYTES = 526_770_780
+XFER_CHUNKS = (4 << 20, 8 << 20, 16 << 20, 32 << 20)
+XFER_DEPTHS = (4, 8, 12, 16)
+XFER_REPS = 3
 
 
 def _wrapper(name):
@@ -1292,6 +1308,111 @@ def check_sample_tiles(dev, seed):
     return {"tile_sample": {**rows[0], "u32": rows[1]}}
 
 
+# -- phase 3: the device join's host-to-device copies ---------------------
+
+def _gb_per_s(fn, nbytes, reps=XFER_REPS):
+    """The rates of ``reps`` runs of ``fn`` (host clock, ending in a
+    synchronisation), GB/s, after one untimed run."""
+    fn()
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        rates.append(nbytes / (time.perf_counter() - t0) / 1e9)
+    return rates
+
+
+def check_transfers(dev, seed):
+    """The transfer layer's rates for a source of XFER_BYTES random bytes,
+    read from warm heap memory and from a fresh read-only map of a raw
+    file (``io/rawfile.py``'s ``map_readonly``, as the sidecar and the
+    index are read; the page cache warm, so minor faults only): a
+    pageable ``.to(dev)``, ``h2d_staged`` at its constants and over the
+    XFER_CHUNKS x XFER_DEPTHS sweep that chose them, and, as the link's
+    ceiling, one copy of the whole source from pinned memory (its fill
+    untimed). Every staged copy is checked bit-exact against the
+    pageable one. GB/s, ``XFER_REPS`` runs each, median first."""
+    from statistics import median
+
+    from kcftools_tpu_torch.engine import device_join as tdj
+    from kcftools_tpu_torch.io import rawfile
+
+    n = XFER_BYTES
+    heap = np.frombuffer(np.random.default_rng(seed).bytes(n), np.uint8)
+    tmp = tempfile.mkdtemp(prefix="kcf_xfer_")
+    path = os.path.join(tmp, "src.raw")
+    heap.tofile(path)
+    want = tdj._host_tensor(heap).to(dev)
+    dst = torch.empty(n, dtype=torch.uint8, device=dev)
+    pinned = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    row = {"bytes": n, "chunk": tdj.H2D_CHUNK, "depth": tdj.H2D_DEPTH,
+           "cores": os.cpu_count(), "page_cache": "warm"}
+
+    def mapped(fn):
+        """``fn`` of a fresh read-only map of the file."""
+        def run():
+            with open(path, "rb") as fh:
+                mm = rawfile.map_readonly(fh)
+                try:
+                    fn(np.frombuffer(mm, np.uint8))
+                finally:
+                    mm.close()
+        return run
+
+    def staged(chunk, depth):
+        return lambda src: tdj.h2d_staged([(dst, src)], chunk=chunk,
+                                          depth=depth)
+
+    def checked(chunk, depth):
+        def run(src):
+            dst.zero_()
+            staged(chunk, depth)(src)
+            torch.cuda.synchronize()
+            if not torch.equal(dst, want):
+                fail(f"h2d_staged (chunk {chunk}, depth {depth}) differs "
+                     "from the pageable copy")
+        return run
+
+    def pageable(src):
+        tdj._host_tensor(src).to(dev)
+
+    sources = {"heap": lambda fn: (lambda: fn(heap)), "mapped": mapped}
+    try:
+        for name, source in sources.items():
+            sweep = {}
+            for chunk in XFER_CHUNKS:
+                for depth in XFER_DEPTHS:
+                    source(checked(chunk, depth))()
+                    sweep[f"{chunk >> 20}MiB x{depth}"] = median(_gb_per_s(
+                        source(staged(chunk, depth)), n))
+            timed = {
+                what: _gb_per_s(source(fn), n)
+                for what, fn in (
+                    ("pageable", pageable),
+                    ("staged", staged(tdj.H2D_CHUNK, tdj.H2D_DEPTH)))
+            }
+            row[name] = {what: [median(r)] + r for what, r in timed.items()}
+            row[name]["sweep"] = sweep
+            log(f"transfers ({name}, {n} B): pageable "
+                f"{row[name]['pageable'][0]} GB/s, h2d_staged "
+                f"{row[name]['staged'][0]} GB/s; sweep (median GB/s) "
+                f"{json.dumps(sweep)}; best "
+                f"{max(sweep, key=sweep.get)}")
+        pinned.copy_(tdj._host_tensor(heap))
+        row["pinned"] = _gb_per_s(
+            lambda: dst.copy_(pinned, non_blocking=True), n)
+        row["pinned"].insert(0, median(row["pinned"]))
+        log(f"transfers: one pinned copy of {n} B (the link's ceiling) "
+            f"{row['pinned'][0]} GB/s; {json.dumps(row)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del want, dst, pinned
+    torch.cuda.empty_cache()
+    return row
+
+
 # -- phase 4: synthetic data --------------------------------------------
 
 def _write_fasta(path, chroms):
@@ -1926,7 +2047,8 @@ def main():
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    sources = sorted({os.path.basename(v[2])[:-3] for v in KERNELS.values()})
+    sources = sorted({os.path.basename(v[2])[:-3] for v in KERNELS.values()}
+                     | {"h2d"})  # the staged host-to-device copy
     _kernels.load_all(sources)  # one nvcc a source, all at once
     for src in sources:
         info = _kernels.build_info[src]
@@ -1946,6 +2068,7 @@ def main():
     rows.update(check_hash(dev, args.seed))
     rows.update(check_route(dev, args.seed))
     rows.update(check_sample_tiles(dev, args.seed))
+    transfers = check_transfers(dev, args.seed)
 
     launches = (dict.fromkeys(KERNELS) if args.kernels_only
                 else run_paths(args, smi))
@@ -1954,7 +2077,7 @@ def main():
          "source": f"kcftools_tpu_torch/{source}", "replaces": where,
          "launches": launches[name], **rows[name]}
         for name, (_fn, _attr, source, where) in KERNELS.items()
-    ]}
+    ], "transfers": transfers}
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

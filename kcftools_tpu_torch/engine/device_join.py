@@ -48,10 +48,19 @@ copies of the keys, r_idx and window bounds; djoin_route: the query
 tiles' launches), with a device synchronisation at the end of each
 phase; unset, nothing synchronises before
 ``collect``. The counter djoin_h2d_bytes adds up every byte the join
-copies to its devices; djoin_route_on_card adds 1 for a set-up routed by
-the kernels, 0 for one routed by the plain torch version (a CPU device);
-djoin_pack_on_card adds 1 for a sample tiled by the kernels, 0 for one
-tiled by the plain torch version.
+copies to its devices, djoin_h2d_staged_bytes those of them that crossed
+through pinned staging chunks (all on a CUDA device, 0 on a CPU device);
+djoin_route_on_card adds 1 for a set-up routed by the kernels, 0 for one
+routed by the plain torch version (a CPU device); djoin_pack_on_card
+adds 1 for a sample tiled by the kernels, 0 for one tiled by the plain
+torch version.
+
+Every host-to-device copy of the join goes through ``h2d_staged``: a
+pageable ``.to(dev)`` runs at CUDA's single-threaded staging rate
+(~4.7-6 GB/s on the H100's host), so the bytes are instead filled into
+pinned chunks by several host threads side by side (``csrc/h2d.cu``)
+and copied from there asynchronously, the fills overlapping the DMAs. A
+CPU device copies nothing, as before.
 """
 
 import ctypes
@@ -62,6 +71,7 @@ import numpy as np
 import torch
 
 from ..native import get_lib
+from ..ops import _kernels
 from ..utils.logger import Logger
 from ..ops.gapscan import slabs_scan_join
 from ..ops.pjoin import (
@@ -118,40 +128,124 @@ class _Slabs:
         return self.w_start.shape[0]
 
 
-def _h2d(a, dev):
-    """A host array or CPU tensor on ``dev``, its bytes counted as
-    ``djoin_h2d_bytes`` (on a CPU device too, where no copy is made)."""
-    t = torch.from_numpy(a) if isinstance(a, np.ndarray) else a
-    count("djoin_h2d_bytes", t.nbytes)
-    return t.to(dev)
+# The pinned staging of ``h2d_staged``: chunks of H2D_CHUNK bytes,
+# H2D_DEPTH of them filled or in flight at once, by as many host threads
+# (64 MiB pinned). Chosen on the H100 from a sweep of 4, 6 and 8 threads
+# over 4-32 MiB chunks, where 8 MiB x 8 led from the heap, and measured
+# end to end there (PERF.md section 6). chip_smoke.py's sweep now runs 4
+# to 16 threads, and there 16 MiB x 12 read faster from a mapped file
+# (PERF.md section 7: not yet measured end to end).
+H2D_CHUNK = 8 << 20
+H2D_DEPTH = 8
+
+
+def h2d_staged(copies, chunk=H2D_CHUNK, depth=H2D_DEPTH):
+    """Copy each host array or CPU tensor ``src`` of ``copies``, a list of
+    (dst, src) pairs, into its contiguous tensor ``dst`` of as many bytes,
+    every ``dst`` on one CUDA device, through ``depth`` pinned staging
+    buffers of ``chunk`` bytes (fewer, or smaller, where the copies are
+    small): one block from torch's caching host allocator, which hands it
+    to the next call. ``csrc/h2d.cu``'s ``kcf_h2d_staged`` runs the copy:
+    ``depth`` host threads each take the next chunk, fill their buffer
+    once its last DMA is done, and queue the chunk's copy on the device's
+    current stream, the fills side by side and overlapping the DMAs; it
+    returns once every DMA is done. The sources are read only while this
+    call runs: they may change or go once it returns."""
+    outs, inps = [], []
+    for dst, src in copies:
+        inp = _host_bytes(src)
+        if dst.nbytes != inp.size:
+            raise ValueError(f"h2d_staged: {inp.size} source bytes into a "
+                             f"{dst.nbytes}-byte destination")
+        if inp.size:
+            outs.append(dst.view(-1).view(torch.uint8))
+            inps.append(inp)
+    if not inps:
+        return
+    dev = outs[0].device
+    if dev.type != "cuda" or any(out.device != dev for out in outs):
+        raise ValueError("h2d_staged: destinations not all on one CUDA "
+                         "device")
+    size = min(chunk, max(inp.size for inp in inps))
+    workers = min(depth, sum(-(-inp.size // size) for inp in inps))
+    staging = torch.empty(workers * size, dtype=torch.uint8, pin_memory=True)
+    dsts = np.array([out.data_ptr() for out in outs], np.uint64)
+    srcs = np.array([inp.ctypes.data for inp in inps], np.uint64)
+    sizes = np.array([inp.size for inp in inps], np.int64)
+    _kernels.call("kcf_h2d_staged", dev, dsts.ctypes.data, srcs.ctypes.data,
+                  sizes.ctypes.data, len(inps), staging.data_ptr(), size,
+                  workers)
+
+
+def _host_bytes(a):
+    """The bytes of a host array or CPU tensor, as a flat uint8 numpy
+    array over the same memory (a read-only array stays read-only)."""
+    if isinstance(a, torch.Tensor):
+        a = a.contiguous().numpy()
+    return np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+
+
+def _host_tensor(a):
+    """A host array as a CPU tensor over the same memory (a tensor as it
+    is). The array may be a read-only view of a mapped file (the
+    reference index, the sample's sidecar); the tensor is only read, so
+    torch's warning that it could write there is silenced for this call
+    alone."""
+    if not isinstance(a, np.ndarray):
+        return a
+    with warnings.catch_warnings():
+        warnings.filterwarnings(
+            "ignore", "The given NumPy array is not writable")
+        return torch.from_numpy(a)
+
+
+def _count_h2d(tensors, staged):
+    """Count each tensor's bytes as ``djoin_h2d_bytes`` and, where they
+    went through ``h2d_staged``, as ``djoin_h2d_staged_bytes`` (else 0)."""
+    for t in tensors:
+        count("djoin_h2d_bytes", t.nbytes)
+        count("djoin_h2d_staged_bytes", t.nbytes if staged else 0)
+
+
+def _h2d(dev, *arrays):
+    """Host arrays or CPU tensors on ``dev``, as a tuple: on a CUDA device
+    copied in one ``h2d_staged`` call, on a CPU device the tensors
+    themselves (no copy made); their bytes counted by ``_count_h2d``."""
+    ts = [_host_tensor(a) for a in arrays]
+    staged = torch.device(dev).type == "cuda"
+    _count_h2d(ts, staged)
+    if not staged:
+        return tuple(ts)
+    out = tuple(torch.empty(t.shape, dtype=t.dtype, device=dev) for t in ts)
+    h2d_staged(list(zip(out, ts)))
+    return out
 
 
 def _h2d_rows(arrays, width, dtype, dev):
     """Host arrays of ``width`` entries as the rows of one (len, width)
-    tensor of ``dtype`` on ``dev``, each row copied from its array, which
-    is first cast to ``dtype`` on the host where it differs; the copied
-    bytes counted as ``djoin_h2d_bytes``."""
+    tensor of ``dtype`` on ``dev``, each row copied from its array (all
+    in one ``h2d_staged`` call on a CUDA device), which is first cast to
+    ``dtype`` on the host where it differs; the copied bytes counted by
+    ``_count_h2d``."""
     out = torch.empty((len(arrays), width), dtype=dtype, device=dev)
-    for row, a in zip(out, arrays):
-        t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
-        count("djoin_h2d_bytes", t.nbytes)
-        row.copy_(t)
+    ts = [_host_tensor(np.ascontiguousarray(a)).to(dtype) for a in arrays]
+    staged = out.device.type == "cuda"
+    _count_h2d(ts, staged)
+    if staged:
+        h2d_staged(list(zip(out, ts)))
+    else:
+        for row, t in zip(out, ts):
+            row.copy_(t)
     return out
 
 
 def _as_tensor(a, unsigned, signed):
     """A host array of ``unsigned`` values as a CPU tensor of the
     ``signed`` numpy type of the same width and bits: sorted keys
-    (uint64 -> int64) or counts (uint32 -> int32). The array is a
-    read-only view of a mapped file where it was loaded (the reference
-    index, the sample's sidecar); the tensor is only read (copied to the
-    device, or routed and tiled in place on a CPU device), so torch's
-    warning that it could write there is silenced for this call alone."""
-    a = np.ascontiguousarray(a, unsigned).view(signed)
-    with warnings.catch_warnings():
-        warnings.filterwarnings(
-            "ignore", "The given NumPy array is not writable")
-        return torch.from_numpy(a)
+    (uint64 -> int64) or counts (uint32 -> int32), over the same memory
+    (``_host_tensor``); it is only read (copied to the device, or routed
+    and tiled in place on a CPU device)."""
+    return _host_tensor(np.ascontiguousarray(a, unsigned).view(signed))
 
 
 def pack_tiles_host(db_keys, db_counts, k, b, tile=None):
@@ -250,8 +344,8 @@ class DeviceJoinScorer:
             with stage("djoin_statics"):
                 self._layout.finalize()
             with phase("djoin_static_upload", dev):
-                keys = _h2d(_as_tensor(self._refk, np.uint64, np.int64),
-                            dev)
+                keys, = _h2d(dev, _as_tensor(self._refk, np.uint64,
+                                             np.int64))
                 statics = _Slabs(self._layout.slabs, self._layout.pos_pad,
                                  self._layout.win_pad, dev)
             with phase("djoin_route", dev):
@@ -290,8 +384,9 @@ class DeviceJoinScorer:
         self._finalize()
         dev = self.device
         with phase("djoin_upload", dev):
-            keys = _h2d(_as_tensor(db_keys, np.uint64, np.int64), dev)
-            counts = _h2d(_as_tensor(db_counts, np.uint32, np.int32), dev)
+            keys, counts = _h2d(dev,
+                                _as_tensor(db_keys, np.uint64, np.int64),
+                                _as_tensor(db_counts, np.uint32, np.int32))
         with phase("djoin_pack", dev):
             tiles, Tt, packed = tile_sample(
                 keys, counts, self.k, self.P.bit_length() - 1,
@@ -405,8 +500,8 @@ class MeshJoinScorer(DeviceJoinScorer):
             with stage("djoin_statics"):
                 self._layout.finalize(n_parts=self.d_axis)
             with phase("djoin_static_upload", dev):
-                keys = _h2d(_as_tensor(self._refk, np.uint64, np.int64),
-                            dev)
+                keys, = _h2d(dev, _as_tensor(self._refk, np.uint64,
+                                             np.int64))
             with phase("djoin_route", *slots):
                 qh, ql, slot_of_ord = self._route(keys, self.t_axis)
                 del keys
@@ -449,8 +544,8 @@ class MeshJoinScorer(DeviceJoinScorer):
         )
         with phase("djoin_upload", *slots):
             tiles = {
-                ti: [_h2d(as_i32(a[ti * pt : (ti + 1) * pt]), q[0].device)
-                     for a in planes]
+                ti: _h2d(q[0].device,
+                         *(as_i32(a[ti * pt : (ti + 1) * pt]) for a in planes))
                 for ti, q in self._q.items()
             }
         with phase("djoin_join", *slots):

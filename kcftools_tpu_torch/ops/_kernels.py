@@ -110,6 +110,7 @@ _ENTRIES = {
     "kcf_route_tiles": ("route", [_P, _LL, _I, _I, _P, _LL, _P, _P, _P, _P]),
     "kcf_route_slabs": ("route", [_P, _LL, *[_P] * 4]),
     "kcf_sample_tiles": ("route", [_P, _P, _P, _I, _I, _LL, _I, _P, _P]),
+    "kcf_h2d_staged": ("h2d", [_P, _P, _P, _I, _P, _LL, _I, _P]),
 }
 
 
@@ -134,11 +135,19 @@ def launch(entry, *args):
     appended. Each entry point is bound once. Operands are checked by
     the caller (ops/pjoin.py, ops/gapscan.py, ops/hashscan.py,
     ops/route.py)."""
-    fn = _entry(entry)
     out = [a for a in args if isinstance(a, torch.Tensor)][-1]
-    vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = fn(*vals, stream)
+    call(entry, out.device,
+         *[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args])
+
+
+def call(entry, device, *args):
+    """Call one C entry point of csrc/ (``_ENTRIES``) with plain values
+    (pointers as ints) and, appended, the current stream of the CUDA
+    ``device``, with that device current; raise if it returns non-zero.
+    The interpreter lock is released for the call (ctypes)."""
+    fn = _entry(entry)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")

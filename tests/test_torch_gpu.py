@@ -1048,13 +1048,11 @@ def test_sample_tile_kernels_cell_shape(cuda_device, no_plain_route):
         torch.cuda.empty_cache()
 
 
-@pytest.mark.cuda
-def test_device_join_routes_on_card(cuda_device, monkeypatch, tmp_path):
-    """DeviceJoinScorer on cuda routes and tiles its sample with the
-    kernels: one launch of each, djoin_route_on_card and
-    djoin_pack_on_card 1, the same bytes uploaded, query tiles and
-    slab statics equal to the CPU scorer's (the plain version), and the
-    same per-window statistics."""
+def _join_cpu_and_card(cuda_device, monkeypatch, tmp_path):
+    """One reference and sample through a CPU and a CUDA
+    DeviceJoinScorer (slabs of 2^17): device type -> (scorer, its
+    windows' statistics, the stage snapshot of the call, the launches of
+    route_reference, route_slabs and tile_sample)."""
     from kcftools_tpu_torch.utils import stagetimer as st
 
     monkeypatch.setenv("KCFTOOLS_STAGE_JSON", str(tmp_path / "st.json"))
@@ -1063,7 +1061,7 @@ def test_device_join_routes_on_card(cuda_device, monkeypatch, tmp_path):
     k = 31
     _g, _v, refk, r_idx, db, dbc = _genome_case(rng, 400_000, k)
     starts, ends = tiling_windows(r_idx.shape[0] + k - 1, 5000, k)
-    scorers, out, snaps = {}, {}, {}
+    runs = {}
     for dev in (torch.device("cpu"), cuda_device):
         sc = DeviceJoinScorer(_Ref(refk), k, dev)
         sc.add_chrom("c", r_idx, starts, ends)
@@ -1071,20 +1069,19 @@ def test_device_join_routes_on_card(cuda_device, monkeypatch, tmp_path):
                   trt.tile_sample.launches)
         st.reset()
         sc.submit(0, refk, db, dbc)
-        snaps[dev.type] = st.snapshot()
+        snap = st.snapshot()
         launched = (trt.route_reference.launches - before[0],
                     trt.route_slabs.launches - before[1],
                     trt.tile_sample.launches - before[2])
-        assert launched == ((1, 1, 1) if dev.type == "cuda" else (0, 0, 0))
-        out[dev.type] = sc.collect(0)["c"]
-        scorers[dev.type] = sc
+        runs[dev.type] = (sc, sc.collect(0)["c"], snap, launched)
     st.reset()
-    assert snaps["cpu"]["djoin_route_on_card"] == 0
-    assert snaps["cuda"]["djoin_route_on_card"] == 1
-    assert snaps["cpu"]["djoin_pack_on_card"] == 0
-    assert snaps["cuda"]["djoin_pack_on_card"] == 1
-    assert snaps["cuda"]["djoin_h2d_bytes"] == snaps["cpu"]["djoin_h2d_bytes"]
-    cpu, gpu = scorers["cpu"], scorers["cuda"]
+    return runs
+
+
+def _same_join(runs):
+    """The CUDA scorer's query tiles, slab statics and windows' statistics
+    equal to the CPU scorer's."""
+    (cpu, want, _s, _l), (gpu, got, _s2, _l2) = runs["cpu"], runs["cuda"]
     assert len(gpu._statics) == len(cpu._statics) > 1
     for a, b in ((cpu._q_hi, gpu._q_hi), (cpu._q_lo, gpu._q_lo),
                  (cpu._statics.slot_maps, gpu._statics.slot_maps),
@@ -1092,6 +1089,89 @@ def test_device_join_routes_on_card(cuda_device, monkeypatch, tmp_path):
                  (cpu._statics.w_start, gpu._statics.w_start),
                  (cpu._statics.w_hi, gpu._statics.w_hi)):
         assert torch.equal(a, b.cpu())
-    for f, want in out["cpu"].items():
-        np.testing.assert_array_equal(out["cuda"][f], want, err_msg=f)
-    assert out["cuda"]["observed"].sum() > 0
+    for f, w in want.items():
+        np.testing.assert_array_equal(got[f], w, err_msg=f)
+    assert got["observed"].sum() > 0
+
+
+@pytest.mark.cuda
+def test_device_join_routes_on_card(cuda_device, monkeypatch, tmp_path):
+    """DeviceJoinScorer on cuda routes and tiles its sample with the
+    kernels: one launch of each, djoin_route_on_card and
+    djoin_pack_on_card 1, the same bytes uploaded, all of them through
+    the pinned staging (djoin_h2d_staged_bytes; 0 on the CPU), query
+    tiles and slab statics equal to the CPU scorer's (the plain
+    version), and the same per-window statistics."""
+    runs = _join_cpu_and_card(cuda_device, monkeypatch, tmp_path)
+    snaps = {dev: run[2] for dev, run in runs.items()}
+    assert runs["cpu"][3] == (0, 0, 0)
+    assert runs["cuda"][3] == (1, 1, 1)
+    assert snaps["cpu"]["djoin_route_on_card"] == 0
+    assert snaps["cuda"]["djoin_route_on_card"] == 1
+    assert snaps["cpu"]["djoin_pack_on_card"] == 0
+    assert snaps["cuda"]["djoin_pack_on_card"] == 1
+    assert snaps["cuda"]["djoin_h2d_bytes"] == snaps["cpu"]["djoin_h2d_bytes"]
+    assert snaps["cpu"]["djoin_h2d_staged_bytes"] == 0
+    assert (snaps["cuda"]["djoin_h2d_staged_bytes"]
+            == snaps["cuda"]["djoin_h2d_bytes"])
+    _same_join(runs)
+
+
+@pytest.mark.cuda
+def test_device_join_staged_small_chunks(cuda_device, monkeypatch,
+                                         tmp_path):
+    """The whole device join with its uploads staged through 4,093-byte
+    chunks two deep (hundreds of chunks a copy, their edges inside the
+    keys): statics and statistics equal to the CPU scorer's, and
+    djoin_h2d_staged_bytes equal to djoin_h2d_bytes."""
+    from kcftools_tpu_torch.engine import device_join as tdj
+
+    staged, real = [], tdj.h2d_staged
+
+    def small(copies):
+        staged.extend(dst.nbytes for dst, _src in copies)
+        real(copies, chunk=4093, depth=2)
+
+    monkeypatch.setattr(tdj, "h2d_staged", small)
+    runs = _join_cpu_and_card(cuda_device, monkeypatch, tmp_path)
+    snap = runs["cuda"][2]
+    assert sum(staged) == snap["djoin_h2d_staged_bytes"]
+    assert snap["djoin_h2d_staged_bytes"] == snap["djoin_h2d_bytes"]
+    assert snap["djoin_h2d_bytes"] == runs["cpu"][2]["djoin_h2d_bytes"]
+    assert max(staged) > 100 * 4093
+    _same_join(runs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["heap", "mapped"])
+def test_h2d_staged_matches_to(cuda_device, tmp_path, source):
+    """h2d_staged into the middle row of a (3, n) int64 tensor, in chunks
+    of 65,537 bytes two deep (40 chunks and an odd tail, their edges
+    inside the elements), behind a device sleep that holds every DMA
+    back: a buffer refilled before its copy ran would show. The source
+    (a heap array, or a read-only map of a file) is overwritten as soon
+    as the call returns. The row equals the source's ``.to(dev)`` as it
+    was, bit for bit, and the rows beside it are untouched."""
+    from kcftools_tpu_torch.engine.device_join import h2d_staged
+
+    chunk = 65_537
+    n = 40 * chunk // 8 + 3
+    want = np.random.default_rng(5).integers(-(1 << 63), (1 << 63) - 1, n,
+                                             dtype=np.int64)
+    if source == "heap":
+        src = writer = want.copy()
+    else:
+        path = str(tmp_path / "src.raw")
+        want.tofile(path)
+        src = np.memmap(path, dtype=np.int64, mode="r")
+        writer = np.memmap(path, dtype=np.int64, mode="r+")
+    dst = torch.full((3, n), -1, dtype=torch.int64, device=cuda_device)
+    expect = torch.from_numpy(want).to(cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of the stream's time
+    h2d_staged([(dst[1], src)], chunk=chunk, depth=2)
+    writer[:] = 0
+    torch.cuda.synchronize()
+    assert torch.equal(dst[1], expect)
+    assert bool((dst[0] == -1).all()) and bool((dst[2] == -1).all())
+    del src, writer

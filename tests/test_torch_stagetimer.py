@@ -277,14 +277,129 @@ def test_slabs_upload_counts_bytes(monkeypatch):
     s = tdj._Slabs([slab], 32, 8, torch.device("cpu"))
     assert len(s) == 1 and s.slot_maps is None
     assert s.w_hi.dtype == torch.int64 and s.w_hi.tolist() == [[1] * 8]
-    assert st.snapshot() == {"djoin_h2d_bytes": 32 * 4 + 2 * 8 * 8}
+    assert st.snapshot() == {"djoin_h2d_bytes": 32 * 4 + 2 * 8 * 8,
+                             "djoin_h2d_staged_bytes": 0}
     s.route(torch.tensor([5, 6, 7], dtype=torch.int32))
     assert s.r_idx is None
     assert s.slot_maps[0, :4].tolist() == [5, 0, 7, 6]
     assert not s.slot_maps[0, 4:].any()
     assert s.valid_bits.tolist() == [[0b1101, 0, 0, 0]]
-    assert st.snapshot() == {"djoin_h2d_bytes": 32 * 4 + 2 * 8 * 8}
+    assert st.snapshot() == {"djoin_h2d_bytes": 32 * 4 + 2 * 8 * 8,
+                             "djoin_h2d_staged_bytes": 0}
     st.reset()
+
+
+# -- the staged upload's host code ---------------------------------------
+
+
+@pytest.fixture(scope="module")
+def h2d_stub(tmp_path_factory):
+    """``csrc/h2d.cu``'s ``kcf_h2d_staged``, built by g++ against
+    ``tests/cuda_stub/cuda_runtime.h`` (no GPU: one in-order stream of
+    delayed memcpy copies, so a buffer refilled before its copy ran shows
+    in the destination), bound with the program's own argument types."""
+    import ctypes
+    import subprocess
+
+    from kcftools_tpu_torch.ops import _kernels
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(os.path.dirname(here), "kcftools_tpu_torch", "csrc",
+                       "h2d.cu")
+    lib = str(tmp_path_factory.mktemp("h2d_stub") / "libh2dstub.so")
+    subprocess.run(["g++", "-std=c++17", "-O2", "-shared", "-fPIC",
+                    "-pthread", "-I", os.path.join(here, "cuda_stub"),
+                    "-x", "c++", src, "-o", lib], check=True)
+    dll = ctypes.CDLL(lib)
+    fn = dll.kcf_h2d_staged
+    fn.restype = ctypes.c_int
+    fn.argtypes = _kernels._ENTRIES["kcf_h2d_staged"][1]
+    dll.kcf_stub_set_delay_us(50)
+    return fn
+
+
+def _stub_staged(fn, copies, chunk, depth):
+    """``kcf_h2d_staged`` of the stub build over (dst, src) byte arrays
+    through ``depth`` buffers of ``chunk`` bytes, laid out as
+    ``h2d_staged`` lays them; the buffers are overwritten as soon as it
+    returns, as the caching host allocator may hand them on."""
+    dsts = np.array([d.ctypes.data for d, _s in copies], np.uint64)
+    srcs = np.array([s.ctypes.data for _d, s in copies], np.uint64)
+    sizes = np.array([s.size for _d, s in copies], np.int64)
+    bufs = np.full(chunk * depth, 0xAB, np.uint8)
+    rc = fn(dsts.ctypes.data, srcs.ctypes.data, sizes.ctypes.data,
+            len(copies), bufs.ctypes.data, chunk, depth, None)
+    bufs[:] = 0xCD
+    return rc
+
+
+# kcf_h2d_staged's chunk loop: (elements, chunk bytes, depth) of each
+# case; 25 elements over 7-byte chunks is several chunks and an odd tail,
+# the chunk edges falling inside the int32 and int64 elements
+_STAGED = {"empty": (0, 7, 2), "one": (1, 7, 2), "chunk-1": (25, None, 2),
+           "chunk": (25, 0, 2), "several": (25, 7, 2),
+           "several-deep": (25, 7, 3)}
+
+
+@pytest.mark.parametrize("readonly", [False, True], ids=["heap", "mapped"])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32, np.int64])
+@pytest.mark.parametrize("case", list(_STAGED))
+def test_h2d_staged_chunk_loop(monkeypatch, h2d_stub, case, dtype,
+                               readonly):
+    """``kcf_h2d_staged``'s host code (the stub build) writes every byte
+    of the source and no other, at 0 and 1 bytes, one chunk less 1,
+    exactly one chunk and several chunks with an odd tail, from a heap
+    array or a read-only (mapped-style) view, its copies done when it
+    returns; ``_h2d`` and ``_h2d_rows`` on a CPU device take the same
+    source without a warning and count the same ``djoin_h2d_bytes`` as
+    ever and 0 ``djoin_h2d_staged_bytes``."""
+    import warnings
+
+    n, chunk, depth = _STAGED[case]
+    rng = np.random.default_rng(n + depth)
+    src = rng.integers(0, 1 << 62, n).astype(dtype)
+    nbytes = src.nbytes
+    chunk = {None: nbytes + 1, 0: nbytes}.get(chunk, chunk)
+    if case == "chunk-1":
+        assert nbytes == chunk - 1
+    src.flags.writeable = not readonly
+    dst = np.full(nbytes + 8, 0xEE, np.uint8)
+    assert _stub_staged(h2d_stub, [(dst[4 : 4 + nbytes],
+                                    src.view(np.uint8))], chunk, depth) == 0
+    assert dst[4 : 4 + nbytes].tobytes() == src.tobytes()
+    assert (dst[:4] == 0xEE).all() and (dst[4 + nbytes :] == 0xEE).all()
+    tdtype = {np.uint8: torch.uint8, np.int32: torch.int32,
+              np.int64: torch.int64}[dtype]
+    monkeypatch.setenv("KCFTOOLS_STAGE_JSON", os.devnull)
+    st.reset()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        on, = tdj._h2d(torch.device("cpu"), src)
+        rows = tdj._h2d_rows([src], n, tdtype, torch.device("cpu"))
+    assert on.numpy().tobytes() == rows.numpy().tobytes() == src.tobytes()
+    assert st.snapshot() == {"djoin_h2d_bytes": 2 * nbytes,
+                             "djoin_h2d_staged_bytes": 0}
+    st.reset()
+
+
+def test_h2d_staged_pairs(h2d_stub):
+    """One ``kcf_h2d_staged`` call (the stub build) fills several
+    destinations, empty ones among them, their chunks taken in turn
+    through more buffers than one and many more chunks than buffers,
+    every copy done when it returns; ``h2d_staged`` refuses a destination
+    of another size, and one that is not on a CUDA device."""
+    rng = np.random.default_rng(9)
+    srcs = [rng.integers(0, 255, n, dtype=np.uint8)
+            for n in (0, 1, 40, 97, 0, 5000)]
+    srcs.append(rng.integers(0, 1 << 40, 33, dtype=np.int64).view(np.uint8))
+    dsts = [np.zeros(a.size, np.uint8) for a in srcs]
+    assert _stub_staged(h2d_stub, list(zip(dsts, srcs)), 8, 3) == 0
+    for d, a in zip(dsts, srcs):
+        assert d.tobytes() == a.tobytes()
+    with pytest.raises(ValueError, match="source bytes"):
+        tdj.h2d_staged([(torch.empty(3, dtype=torch.uint8), srcs[2])])
+    with pytest.raises(ValueError, match="CUDA device"):
+        tdj.h2d_staged([(torch.empty(40, dtype=torch.uint8), srcs[2])])
 
 
 @pytest.mark.parametrize("writable", [True, False])
@@ -429,6 +544,7 @@ def test_sample_pack_counter_and_upload(monkeypatch):
         snap = st.snapshot()
         assert snap["djoin_pack_on_card"] == 0
         assert snap["djoin_h2d_bytes"] == 12 * keys.shape[0]
+        assert snap["djoin_h2d_staged_bytes"] == 0  # nothing pinned
         assert "djoin_upload" in snap and "djoin_pack" in snap
         assert sc.collect(key)["c"]["observed"].sum() > 0
     st.reset()
